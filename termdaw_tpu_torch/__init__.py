@@ -8,11 +8,13 @@ CUDA kernels for Hopper where the reference had Pallas kernels.
 This package imports `torch` and never `jax`: from `termdaw_tpu` it uses
 only the JAX-free host layers (`lua`, `fileio`, `banks.flowwbank`,
 `banks.bufferbank`, `config`, `utils.term`, `utils.prof.span`,
-`engine.sink`, `workflows.ui`). Everything else it needs is carried over
-as a module of its own, whose docstring names the file it came from.
+`engine.sink`, `workflows.palette`). Everything else it needs is carried
+over as a module of its own, whose docstring names the file it came from.
 
-Ported so far: the offline render (`State.render`) of graphs made of Sum,
-Normalize, SampleLoop and SampleMulti vertices. Other vertex kinds abort
+Ported so far: the offline render (`State.render`) and playback (`play`
+in the manual workflow) of graphs made of every vertex kind but the
+effects: Sum, Normalize, SampleLoop, SampleMulti, SampleLerp, DebugSine,
+Synth, SampSyn, Adsr and BandPass. `load_lv2` and effect vertices abort
 the refresh with a "not yet ported" message.
 
     python -m termdaw_tpu_torch [--device cuda|cpu] [workdir]

@@ -4,7 +4,8 @@ Counterpart of termdaw_tpu/cli.py (reference main.rs:38-135): reads
 <wdir>/project.toml, prints the banner, builds the State on the asked
 device (default `cuda`; an unavailable device is an error, never a
 fallback), runs the initial refresh, opens the audio sink and runs the
-manual workflow. The stream workflow is not ported yet.
+port's manual workflow (workflows/ui.py: render, normalize, play and the
+time controls). The stream workflow is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,10 +17,10 @@ from pathlib import Path
 from termdaw_tpu.config import Config, WorkFlow
 from termdaw_tpu.engine.sink import make_sink
 from termdaw_tpu.utils.term import DEFAULT, BLUE, RED
-from termdaw_tpu.workflows.ui import run_ui_workflow
 
 from .device import resolve_device
 from .engine.state import State
+from .workflows.ui import run_ui_workflow
 
 
 def main(argv: list[str] | None = None) -> int:

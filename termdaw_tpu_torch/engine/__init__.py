@@ -1,1 +1,1 @@
-"""Engine: session state, refresh (Lua -> window program), render."""
+"""Engine: session state, refresh (Lua -> window program), render, playback."""

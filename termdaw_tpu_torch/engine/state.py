@@ -6,9 +6,9 @@ graph rebuild) is carried over unchanged; what differs:
 
 * `State(config, wdir, device=...)` renders on an explicit torch.device;
   nothing falls back to another device;
-* the compile step builds the port's CompiledGraph; a vertex kind the
-  port does not have yet aborts the refresh with a "not yet ported"
-  message, and so does `load_lv2` (engine/plugins.py);
+* the compile step builds the port's CompiledGraph; it renders every
+  vertex kind but the effects: `load_lv2` (engine/plugins.py) and an
+  effect vertex abort the refresh with a "not yet ported" message;
 * there is no backend guard and no mesh: renders run on one device, in
   windows of `render_chunk_blocks(cs)` blocks;
 * `render_device` returns device int tensors, which `render` copies to
@@ -458,7 +458,6 @@ class State:
                 params={"floww_index": fi, "conf": conf},
             )
             self.g.add(decl)
-            # handed to CompiledGraph once SampSyn is ported
             wavetables[len(self.g.vertices) - 1] = table
         for name, gain, angle, wet, plugin in lv2fxs:
             pi = get_index(self.host, plugin, name, "plugin")
@@ -496,7 +495,8 @@ class State:
         # ---- build the window program ---------------------------------------
         try:
             self.compiled = CompiledGraph(
-                self.g, self.sb, bl, device=self.device
+                self.g, self.sb, bl, device=self.device,
+                wavetables=wavetables,
             )
         except NotImplementedError as e:
             print(f"{RED}TermDaw: {e}{DEFAULT}")

@@ -14,8 +14,12 @@ explicit device instead of as a jitted XLA program:
   `_unpack_bakes` slices;
 * `render_window` live-bakes every window (the reference's
   TERMDAW_PREBAKE=0 semantics: no prebaked or recorded chains);
-* `_program` has the SUM, NORMALIZE, SAMPLELOOP and SAMPLEMULTI arms.
-  Other vertex kinds raise NotImplementedError at build.
+* `_program` has an arm for every vertex kind but PLUGINFX (the effects),
+  which raises NotImplementedError at build;
+* the frame -> seconds table (`time_table`, a correctly rounded f32
+  division on the host) is uploaded once per size on the graph's device
+  and sliced per window, for the synths' `time2d` and every envelope's
+  in-block offsets `ib`.
 
 Fused groups (every SampleMulti whose only consumer is the same vertex,
 two or more per consumer) are formed on every device, so the CPU path
@@ -29,7 +33,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import numpy as np
@@ -39,9 +43,26 @@ from termdaw_tpu.banks.flowwbank import FlowwBank
 
 from . import bake as B
 from . import graph as G
-from ..ops import mix, sampler, voices
+from ..ops import envelope, filters, mix, sampler, synthv, voices
+from ..ops.filters import BandPassState
 
-PORTED_KINDS = (G.SUM, G.NORMALIZE, G.SAMPLELOOP, G.SAMPLEMULTI)
+PORTED_KINDS = (
+    G.SUM, G.NORMALIZE, G.SAMPLELOOP, G.SAMPLEMULTI, G.SAMPLELERP,
+    G.DEBUGSINE, G.SYNTH, G.SAMPSYN, G.ADSR, G.BANDPASS,
+)
+# kinds whose window kernels read absolute frames / the time table
+_FRAME_KINDS = (G.SAMPLELERP, G.DEBUGSINE, G.SYNTH, G.SAMPSYN, G.ADSR)
+_TIME_KINDS = (G.DEBUGSINE, G.SYNTH, G.SAMPSYN, G.ADSR)
+
+
+def time_table(sr: int, n_frames: int) -> np.ndarray:
+    """f32(i) / f32(sr) for i < n2, n2 the power of two >= n_frames (at
+    least 4096): the reference's time = (t+i) as f32 / sr as f32, a TRUE
+    f32 division (numpy's is correctly rounded), built on the host as the
+    reference builds it (termdaw_tpu/graph/compile.py:187-198)."""
+    n2 = 1 << max(12, (int(n_frames) - 1).bit_length())
+    f = np.arange(n2, dtype=np.int64).astype(np.float32)
+    return f / np.float32(sr)
 
 
 def _pack_bakes(bakes: dict[str, dict[str, np.ndarray]]):
@@ -78,16 +99,28 @@ def _unpack_bakes(ints_buf: torch.Tensor, floats_buf: torch.Tensor, layout):
     return bakes
 
 
-# which ported vertex kinds carry host-side bake state, and their carry
-# class (the reference's registry also lists the unported event kinds)
-_CARRY_CLASSES: dict[str, type] = {G.SAMPLEMULTI: B.MultiCarry}
+# which vertex kinds carry host-side bake state, and their carry class
+_CARRY_CLASSES: dict[str, type] = {
+    G.SAMPLEMULTI: B.MultiCarry,
+    G.SAMPLELERP: B.LerpCarry,
+    G.DEBUGSINE: B.SineCarry,
+    G.SYNTH: B.NotesCarry,
+    G.SAMPSYN: B.NotesCarry,
+    G.ADSR: B.AdsrCarry,
+}
 
 
 def _caps_from_table(kind: str, tbl: dict) -> dict[str, int]:
     """Observed layout sizes of one baked table (the cap fields)."""
-    if kind == G.SAMPLEMULTI:
+    if kind in (G.SAMPLEMULTI, G.DEBUGSINE, G.SYNTH, G.SAMPSYN):
         return {"p": int(tbl["idx"].shape[1]),
                 "n": int(tbl["vels"].shape[0])}
+    if kind == G.SAMPLELERP:
+        return {"e": int(tbl["p_starts"].shape[0]),
+                "b": int(tbl["bounds"].shape[0])}
+    if kind == G.ADSR:
+        return {"e": int(tbl["p_vel"].shape[0]),
+                "b": int(tbl["bounds"].shape[0])}
     if kind == "fused":
         return {"pf": int(tbl["begins"].shape[1])}
     return {}
@@ -96,6 +129,20 @@ def _caps_from_table(kind: str, tbl: dict) -> dict[str, int]:
 def _merge_caps(into: dict[str, int], new: dict[str, int]) -> None:
     for k, v in new.items():
         into[k] = max(into.get(k, 0), v)
+
+
+def _port_value(v):
+    """A value from the reference's bake carries rebuilt with the port's
+    classes of the same name (graph/bake.py), recursively."""
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        cls = getattr(B, type(v).__name__)
+        return cls(**{f.name: _port_value(getattr(v, f.name))
+                      for f in dataclasses.fields(v)})
+    if isinstance(v, list):
+        return [_port_value(x) for x in v]
+    if isinstance(v, tuple):
+        return tuple(_port_value(x) for x in v)
+    return copy.deepcopy(v)
 
 
 @dataclass(frozen=True)
@@ -107,6 +154,16 @@ class _VertexStatic:
     sample_len: int = 0
     floww_index: int | None = None
     note: int | None = None
+    lerp_len: int = 0
+    confs: tuple = ()                  # AdsrConf tuple(s)
+    osc_static: tuple = ()             # synth osc (vol, z) pairs
+    use_off: bool = False
+    use_max: bool = False
+    pass_mode: bool = False
+    lgamma: float = 0.0
+    hgamma: float = 0.0
+    wt_pos: int | None = None          # position in self.wavetables
+    release_sec: float = 0.0           # synth-family note retention
 
 
 class CompiledGraph:
@@ -117,9 +174,11 @@ class CompiledGraph:
         bl: int,
         *,
         device: torch.device,
+        wavetables: dict[int, Any] | None = None,  # vertex -> WaveTable
     ) -> None:
         self.graph = graph
         self.bl = bl
+        self.sr = sr = graph.sr
         self.device = torch.device(device)
         self.order = graph.topo_order()
         self.in_edges = [list(e) for e in graph.in_edges]
@@ -138,13 +197,14 @@ class CompiledGraph:
         # device-resident constants (one upload each)
         self.samples: list[torch.Tensor] = []
         self.samples_padded: dict = {}  # pos | ("fused", c) -> [2, Lpad]
+        self.wavetables: list[tuple[torch.Tensor, torch.Tensor]] = []
         sample_pos: dict[int, int] = {}
         self.statics: dict[int, _VertexStatic] = {}
         for vi in self.order:
             v = graph.vertices[vi]
             kw: dict[str, Any] = {"kind": v.kind}
             p = v.params
-            if v.kind in (G.SAMPLELOOP, G.SAMPLEMULTI):
+            if v.kind in (G.SAMPLELOOP, G.SAMPLEMULTI, G.SAMPLELERP):
                 si = p["sample_index"]
                 sample = sample_bank.get_sample(si)
                 if si not in sample_pos:
@@ -162,10 +222,55 @@ class CompiledGraph:
                             self.samples[kw["sample_pos"]], bl
                         )
                     )
-            if v.kind == G.SAMPLEMULTI:
+            if v.kind in (
+                G.SAMPLEMULTI, G.SAMPLELERP, G.DEBUGSINE, G.SYNTH,
+                G.SAMPSYN, G.ADSR,
+            ):
                 kw["floww_index"] = p["floww_index"]
                 kw["note"] = p.get("note")
+            if v.kind == G.SAMPLELERP:
+                kw["lerp_len"] = p["lerp_len"]
+            if v.kind == G.SYNTH:
+                kw["osc_static"] = (
+                    (p["sq_vol"], p["sq_z"]),
+                    (p["tf_vol"], p["tf_z"]),
+                    (p["tr_vol"], 0.0),
+                )
+                kw["confs"] = (p["sq_conf"], p["tf_conf"], p["tr_conf"])
+                # effective release (extensions.rs:469-477): max release_sec
+                # over oscillators with volume > 0
+                rel = 0.0
+                if p["sq_vol"] > 0.0:
+                    rel = p["sq_conf"].release_sec
+                if p["tf_vol"] > 0.0:
+                    rel = max(rel, p["tf_conf"].release_sec)
+                if p["tr_vol"] > 0.0:
+                    rel = max(rel, p["tr_conf"].release_sec)
+                kw["release_sec"] = rel
+            if v.kind == G.SAMPSYN:
+                kw["confs"] = (p["conf"],)
+                kw["release_sec"] = p["conf"].release_sec
+                wt = wavetables[vi]
+                kw["wt_pos"] = len(self.wavetables)
+                self.wavetables.append((
+                    torch.from_numpy(np.asarray(wt.times, np.float32)).to(dev),
+                    torch.from_numpy(
+                        np.ascontiguousarray(wt.waves, np.float32)
+                    ).to(dev),
+                ))
+            if v.kind == G.ADSR:
+                kw["confs"] = (p["conf"],)
+                kw["use_off"] = p["use_off"]
+                kw["use_max"] = p["use_max"]
+            if v.kind == G.BANDPASS:
+                kw["pass_mode"] = p["pass_mode"]
+                kw["lgamma"] = filters.gamma_from_cutoff(p["cut_low"], sr)
+                kw["hgamma"] = filters.gamma_from_cutoff(p["cut_high"], sr)
             self.statics[vi] = _VertexStatic(**kw)
+        kinds = {st.kind for st in self.statics.values()}
+        self._uses_frames = bool(kinds.intersection(_FRAME_KINDS))
+        self._uses_time = bool(kinds.intersection(_TIME_KINDS))
+        self._ttab: torch.Tensor | None = None  # see _time_table
 
         # fused SampleMulti groups: all SAMPLEMULTI vertices whose ONLY
         # consumer is the same vertex mix in one voice-mix call at that
@@ -210,12 +315,15 @@ class CompiledGraph:
                     [self.samples_padded[p] for p in poses], dim=1
                 )
 
-        # per-vertex gain/angle, indexed by vertex id
+        # per-vertex gain/angle/wet, indexed by vertex id
         self._gains = torch.tensor(
             [v.gain for v in graph.vertices], dtype=torch.float32, device=dev
         )
         self._angles = torch.tensor(
             [v.angle for v in graph.vertices], dtype=torch.float32, device=dev
+        )
+        self._wets = torch.tensor(
+            [v.wet for v in graph.vertices], dtype=torch.float32, device=dev
         )
 
         # numeric device state + host bake carries
@@ -226,6 +334,8 @@ class CompiledGraph:
             if st.kind == G.NORMALIZE:
                 self.num_state[f"{vi}.max"] = self._scalar(0.0)
                 self.num_state[f"{vi}.scan_max"] = self._scalar(0.0)
+            elif st.kind == G.BANDPASS:
+                self.num_state[f"{vi}.bp"] = BandPassState.init(dev)
             elif st.kind in _CARRY_CLASSES:
                 self.carries[vi] = _CARRY_CLASSES[st.kind]()
 
@@ -243,6 +353,15 @@ class CompiledGraph:
 
     def _scalar(self, v: float) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.float32, device=self.device)
+
+    def _time_table(self, n_frames: int) -> torch.Tensor:
+        """The device copy of time_table(sr, n_frames), uploaded once per
+        size (a longer table has the shorter one as its prefix)."""
+        if self._ttab is None or self._ttab.shape[0] < n_frames:
+            self._ttab = torch.from_numpy(
+                time_table(self.sr, n_frames)
+            ).to(self.device)
+        return self._ttab
 
     def _record_caps(self, key: str, kind: str, tbl) -> None:
         _merge_caps(self.bake_caps.setdefault(key, {}),
@@ -284,8 +403,9 @@ class CompiledGraph:
         self, num_state: dict[str, np.ndarray], carries: dict, t: int
     ) -> None:
         """Take over a render mid-timeline from the JAX reference: its
-        CompiledGraph's `num_state` (as numpy), its carries and its time.
-        Both graphs must come from the same project."""
+        CompiledGraph's `num_state` (arrays, and a BandPassState per
+        band-pass), its carries and its time. Both graphs must come from
+        the same project."""
         if set(num_state) != set(self.num_state):
             raise ValueError(
                 f"num_state keys {sorted(num_state)} do not match this "
@@ -296,16 +416,25 @@ class CompiledGraph:
                 f"carried vertices {sorted(carries)} do not match this "
                 f"graph's {sorted(self.carries)}"
             )
+        dev = self.device
         for k, v in num_state.items():
-            self.num_state[k] = torch.tensor(
-                np.asarray(v, np.float32), device=self.device
-            )
+            if k.endswith(".bp"):
+                self.num_state[k] = BandPassState(
+                    prevs=torch.tensor(np.asarray(v.prevs, np.float32),
+                                       device=dev),
+                    first=torch.tensor(bool(np.asarray(v.first)),
+                                       device=dev),
+                )
+            else:
+                self.num_state[k] = torch.tensor(np.asarray(v, np.float32),
+                                                 device=dev)
         for vi, c in carries.items():
             cls = _CARRY_CLASSES[self.statics[vi].kind]
-            self.carries[vi] = cls(**{
-                f.name: copy.deepcopy(getattr(c, f.name))
-                for f in dataclasses.fields(cls)
-            })
+            port = _port_value(c)
+            if not isinstance(port, cls):
+                raise ValueError(f"vertex {vi}: carry {type(c).__name__} is "
+                                 f"not a {cls.__name__}")
+            self.carries[vi] = port
         self.t = t
         self.graph.t = t
 
@@ -334,14 +463,41 @@ class CompiledGraph:
 
     # -- time control -------------------------------------------------------
     def set_time(self, t: int) -> None:
-        """Reference extensions.rs:196-204 partial reset: SampleMulti voice
-        clocks keep their elapsed time (absolute frames remapped)."""
+        """Reference extensions.rs:196-204 partial reset: clear DebugSine
+        and Synth notes, re-prime BandPass; SampleMulti/SampleLerp/SampSyn
+        voice clocks keep their elapsed time (absolute frames remapped).
+        Adsr cell clocks are time-relative values and carry through."""
         dt = t - self.t
         for vi, carry in self.carries.items():
-            if carry.voices:
-                self.carries[vi] = B.MultiCarry(
-                    [(s + dt, v) for s, v in carry.voices]
+            kind = self.statics[vi].kind
+            if kind in (G.DEBUGSINE, G.SYNTH):
+                if carry.notes:
+                    self.carries[vi] = type(carry)()
+            elif kind == G.SAMPLEMULTI:
+                if carry.voices:
+                    self.carries[vi] = B.MultiCarry(
+                        [(s + dt, v) for s, v in carry.voices]
+                    )
+            elif kind == G.SAMPLELERP:
+                self.carries[vi] = replace(
+                    carry,
+                    primary_start=carry.primary_start + dt,
+                    ghost_start=carry.ghost_start + dt,
                 )
+            elif kind == G.SAMPSYN and carry.notes:
+                self.carries[vi] = B.NotesCarry([
+                    replace(
+                        n,
+                        on_f=n.on_f + dt,
+                        off_f=None if n.off_f is None else n.off_f + dt,
+                        dead_f=(n.dead_f + dt if n.dead_f < B.INF_FRAME
+                                else n.dead_f),
+                    )
+                    for n in carry.notes
+                ])
+        for vi in self.order:
+            if self.statics[vi].kind == G.BANDPASS:
+                self.num_state[f"{vi}.bp"] = BandPassState.init(self.device)
         self.t = t
         self.graph.t = t
 
@@ -393,11 +549,8 @@ class CompiledGraph:
                 continue  # baked per GROUP below
             st = self.statics[vi]
             key = str(vi)
-            drum = fb.bake_drum(st.floww_index, nb).filter_note(st.note)
-            tbl, nc = B.bake_sample_multi(
-                drum, carry, t0, nb, self.bl, st.sample_len,
-                self.bake_caps.get(key),
-            )
+            tbl, nc = self._bake_vertex(fb, st, carry, t0, nb,
+                                        self.bake_caps.get(key))
             bakes[key] = tbl
             new_carries[vi] = nc
             self._record_caps(key, st.kind, tbl)
@@ -410,6 +563,30 @@ class CompiledGraph:
             bakes[f"fused{consumer}"] = tbl
             self._record_caps(f"fused{consumer}", "fused", tbl)
         return bakes, new_carries
+
+    def _bake_vertex(self, fb: FlowwBank, st: _VertexStatic, carry,
+                     t0: int, nb: int, caps):
+        """One event vertex's window table and end carry (graph/bake.py)."""
+        bl, sr = self.bl, self.sr
+        if st.kind in (G.DEBUGSINE, G.SYNTH, G.SAMPSYN) or (
+            st.kind == G.ADSR and st.use_off
+        ):
+            simple = fb.bake_simple(st.floww_index, nb)
+            if st.kind == G.DEBUGSINE:
+                return B.bake_debug_sine(simple, carry, t0, nb, bl, caps)
+            if st.kind == G.ADSR:
+                return B.bake_adsr_off(simple, carry, st.confs[0], sr, t0,
+                                       nb, bl, st.note, caps)
+            return B.bake_notes(simple, carry, t0, nb, bl, sr,
+                                st.release_sec, caps)
+        drum = fb.bake_drum(st.floww_index, nb).filter_note(st.note)
+        if st.kind == G.SAMPLEMULTI:
+            return B.bake_sample_multi(drum, carry, t0, nb, bl,
+                                       st.sample_len, caps)
+        if st.kind == G.SAMPLELERP:
+            return B.bake_sample_lerp(drum, carry, t0, nb, bl, st.lerp_len,
+                                      caps)
+        return B.bake_adsr_drum(drum, carry, t0, nb, bl, sr, caps)
 
     def _group_pool(self, fb: FlowwBank, consumer: int, members):
         """Frame-sorted pooled event arrays (frames, vels, member-id) for a
@@ -646,6 +823,13 @@ class CompiledGraph:
         T = nb * bl
         bufs: dict[int, torch.Tensor] = {}
         ns = self.num_state
+        if self._uses_frames:
+            frames = torch.arange(t0, t0 + T, dtype=torch.int64,
+                                  device=self.device)
+        if self._uses_time:
+            ttab = self._time_table(t0 + T)
+            time2d = ttab[t0:t0 + T].reshape(nb, bl)
+            ib = ttab[:bl]  # f32(i)/f32(sr), i in block
         for vi in self.order:
             st = self.statics[vi]
             kind = st.kind
@@ -679,13 +863,41 @@ class CompiledGraph:
                 out = outr.reshape(T, 2)
             elif kind == G.SAMPLELOOP:
                 out = sampler.sample_loop(self.samples[st.sample_pos], t0, T)
-            else:  # G.SAMPLEMULTI (kinds are checked at build)
+            elif kind == G.SAMPLEMULTI:
                 begins, vels = voices.compute_begin_vel(
                     bakes[key], t0, nb, bl, st.sample_len
                 )
                 out = voices.voice_mix_stereo(
                     self.samples_padded[st.sample_pos], begins, vels, vels,
                     nb, bl,
+                )
+            elif kind == G.SAMPLELERP:
+                out = sampler.sample_lerp(
+                    self.samples[st.sample_pos], bakes[key], frames,
+                    st.lerp_len,
+                )
+            elif kind == G.DEBUGSINE:
+                out = synthv.debug_sine(bakes[key], frames, nb, bl, time2d)
+            elif kind == G.SYNTH:
+                (sqv, sqz), (tfv, tfz), (trv, _) = st.osc_static
+                sqc, tfc, trc = st.confs
+                out = synthv.synth(
+                    bakes[key], frames, nb, bl, sqv, sqz, sqc, tfv, tfz, tfc,
+                    trv, trc, time2d, ib,
+                )
+            elif kind == G.SAMPSYN:
+                times, waves = self.wavetables[st.wt_pos]
+                out = synthv.sampsyn(bakes[key], frames, nb, bl, st.confs[0],
+                                     times, waves, ib)
+            elif kind == G.ADSR:
+                out = envelope.adsr_apply(
+                    x, bakes[key], frames, st.confs[0], st.use_off,
+                    st.use_max, self._wets[vi], ib,
+                )
+            else:  # G.BANDPASS (kinds are checked at build)
+                out, ns[f"{vi}.bp"] = filters.band_pass_timeline(
+                    x, ns[f"{vi}.bp"], st.lgamma, st.hgamma, st.pass_mode,
+                    self._wets[vi],
                 )
             bufs[vi] = mix.post(out, self._angles[vi], self._gains[vi])
         return bufs[self.output]

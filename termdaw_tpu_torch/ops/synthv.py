@@ -1,0 +1,193 @@
+"""Synth-family window kernels: DebugSine, Synth (3-osc), SampSyn (wavetable).
+
+Port of termdaw_tpu/ops/synthv.py. All consume note-instance tables baked
+by graph/bake.py: `idx` [nb, P] maps each block's slots to table rows
+(-1 = empty slot, masked; its gathers wrap to the last row as jnp's do).
+The per-note envelope clocks the reference accumulates frame by frame
+(extensions.rs:459-578) come from the bake's per-(block, instance)
+accumulated-f32 tables plus the in-block offset `ib` = f32(i)/f32(sr);
+DebugSine's and Synth's oscillator phase uses the reference's time =
+global_frame / sr (extensions.rs:501-503). Both `time2d` and `ib` are slices of the host
+time table (graph/compile.time_table, a correctly rounded f32 division),
+never a division on the device.
+
+SampSyn's wavetable phase is uint32 fixed point, phase = n * round(hz/sr *
+2^32) mod 2^32; PyTorch has no uint32 arithmetic, so it runs in int64
+masked with 0xFFFFFFFF (the low 32 bits of the wrapped 64-bit product are
+the uint32 product) and becomes float32 only after the mask.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import osc
+from .adsr import AdsrConf, apply_ads, apply_r_rt
+from ..graph.bake import SENTINEL
+
+_U32 = 0xFFFFFFFF
+
+
+def _slots(bake, nb: int, bl: int, frames: torch.Tensor):
+    idx = bake["idx"].long()  # [nb, P]
+    return idx, idx >= 0, frames.reshape(nb, bl)
+
+
+def debug_sine(
+    bake: dict[str, torch.Tensor], frames: torch.Tensor, nb: int, bl: int,
+    time2d: torch.Tensor,
+) -> torch.Tensor:
+    """Pure per-note sines, no envelope (extensions.rs:423-457)."""
+    idx, valid, f = _slots(bake, nb, bl, frames)
+    vel = bake["vels"][idx]
+    active = (
+        valid[:, None, :]
+        & (f[:, :, None] >= bake["starts"][idx][:, None, :])
+        & (f[:, :, None] < bake["ends"][idx][:, None, :])
+    )  # [nb, bl, P]
+    hz = bake["hz"][idx]  # [nb, P] host-exact (bake._note_hz)
+    sig = osc.sin_f32(time2d[:, :, None] * hz[:, None, :] * osc.TWO_PI)
+    sig = sig * torch.where(active, vel[:, None, :], 0.0)
+    mono = torch.sum(sig, dim=2).reshape(-1)
+    return torch.stack([mono, mono], dim=1)
+
+
+def _clock_fields(bake, idx: torch.Tensor, ib: torch.Tensor):
+    """Per-frame envelope clocks f32(env_t + i/sr) (extensions.rs:501-506)
+    from the baked per-(block, instance) clocks. Returns (env_ads_t,
+    env_rel_t, rel_t) shaped [nb, bl, P] / [nb, 1, P]."""
+    safe = torch.clamp(idx, min=0)
+    ads0 = torch.gather(bake["env_ads0"], 1, safe)  # [nb, P]
+    rel0 = torch.gather(bake["env_rel0"], 1, safe)
+    rel_t = bake["rel_t"][idx][:, None, :]
+    ibx = ib[None, :, None]
+    return ads0[:, None, :] + ibx, rel0[:, None, :] + ibx, rel_t
+
+
+def _note_envelope(conf: AdsrConf, f, off_f, env_ads_t, env_rel_t, rel_t):
+    """apply_ads while held, apply_r_rt after note-off
+    (extensions.rs:505-506). `held` is per frame: the off frame may be
+    baked ahead, but the release starts when the timeline reaches it."""
+    held = (off_f == SENTINEL) | (f < off_f)
+    return torch.where(held, apply_ads(conf, env_ads_t),
+                       apply_r_rt(conf, env_rel_t, rel_t))
+
+
+def _note_fields(bake, nb: int, bl: int, frames: torch.Tensor,
+                 ib: torch.Tensor):
+    """The per-slot note fields both synths read, broadcast to
+    [nb, bl|1, P], and the life span mask: a note exists from its on
+    event until its removal frame (extensions.rs:482-485)."""
+    idx, valid, f = _slots(bake, nb, bl, frames)
+    fb = f[:, :, None]
+    on_b = bake["on_f"][idx][:, None, :]
+    off_b = bake["off_f"][idx][:, None, :]
+    alive = (valid[:, None, :] & (fb >= on_b)
+             & (fb < bake["dead_f"][idx][:, None, :]))
+    clocks = _clock_fields(bake, idx, ib)
+    vel = bake["vels"][idx][:, None, :]
+    return idx, fb, on_b, off_b, alive, clocks, vel
+
+
+def synth(
+    bake: dict[str, torch.Tensor], frames: torch.Tensor, nb: int, bl: int,
+    sq_vol: float, sq_z: float, sq_conf: AdsrConf,
+    tf_vol: float, tf_z: float, tf_conf: AdsrConf,
+    tr_vol: float, tr_conf: AdsrConf,
+    time2d: torch.Tensor, ib: torch.Tensor,
+) -> torch.Tensor:
+    """3-oscillator synth (extensions.rs:459-529): square-sine +
+    topflat-sine + triangle, each with its own ADSR; output scaled by
+    1 / sum(vol * adsr.max_vel()) (extensions.rs:465-468). Oscillators
+    with volume <= 0 are left out."""
+    amp_mult = sq_vol * sq_conf.max_vel() + tf_vol * tf_conf.max_vel() \
+        + tr_vol * tr_conf.max_vel()
+    amp_mult = 1.0 / amp_mult if amp_mult != 0.0 else 0.0
+
+    idx, fb, _on_b, off_b, alive, (ads_t, rel_el, rel_t), velb = (
+        _note_fields(bake, nb, bl, frames, ib)
+    )
+    time = time2d[:, :, None]
+    hz = bake["hz"][idx][:, None, :]  # [nb, 1, P] host-exact
+
+    s = torch.zeros(fb.shape[:2] + (idx.shape[1],), dtype=torch.float32,
+                    device=fb.device)
+    if sq_vol > 0.0:
+        env = _note_envelope(sq_conf, fb, off_b, ads_t, rel_el, rel_t)
+        s = s + osc.square_sine(time, hz, sq_z) * velb * env * sq_vol
+    if tf_vol > 0.0:
+        env = _note_envelope(tf_conf, fb, off_b, ads_t, rel_el, rel_t)
+        s = s + osc.topflat_sine(time, hz, tf_z) * velb * env * tf_vol
+    if tr_vol > 0.0:
+        env = _note_envelope(tr_conf, fb, off_b, ads_t, rel_el, rel_t)
+        s = s + osc.triangle(time, hz) * velb * env * tr_vol
+    s = torch.where(alive, s * amp_mult, 0.0)
+    mono = torch.sum(s, dim=2).reshape(-1)
+    return torch.stack([mono, mono], dim=1)
+
+
+def sampsyn(
+    bake: dict[str, torch.Tensor], frames: torch.Tensor, nb: int, bl: int,
+    conf: AdsrConf,
+    table_times: torch.Tensor,  # [K] f32, ascending
+    table_waves: torch.Tensor,  # [K, W] f32
+    ib: torch.Tensor,
+) -> torch.Tensor:
+    """Time-varying wavetable synth (reference SampSyn,
+    extensions.rs:531-578): the Synth note lifecycle and ADSR; the
+    oscillator is a table lookup at fixed-point phase, its snapshots
+    blended by note age (the reference passes env_time + rel_t as the
+    table clock, extensions.rs:569)."""
+    amp_mult = 1.0 / conf.max_vel() if conf.max_vel() != 0.0 else 0.0
+    K, W = table_waves.shape
+
+    idx, fb, on_b, off_b, alive, (ads_t, rel_el, rel_t), velb = (
+        _note_fields(bake, nb, bl, frames, ib)
+    )
+    env = _note_envelope(conf, fb, off_b, ads_t, rel_el, rel_t)
+
+    # table clock env_time + rel_t: ~time since note-on (rel_t 0 while held)
+    held = (off_b == SENTINEL) | (fb < off_b)
+    tau = torch.where(held, ads_t, rel_el + rel_t).reshape(-1)  # f32
+    if K > 1:
+        k = torch.clamp(
+            torch.searchsorted(table_times, tau, right=True) - 1, 0, K - 2
+        )
+        t_k = table_times[k]
+        t_k1 = table_times[k + 1]
+        blend = torch.clamp(
+            (tau - t_k) / torch.clamp(t_k1 - t_k, min=1e-9), 0.0, 1.0
+        )
+    else:
+        k = torch.zeros_like(tau, dtype=torch.long)
+
+    # fixed-point phase: n * c_fix mod 2^32 (see the module docstring);
+    # hz/sr (`cyc`) is a host f32 division
+    n = (fb - on_b) & _U32  # frames since note-on, as uint32
+    cyc = bake["cyc"][idx][:, None, :]
+    c_fix = (cyc * 2.0**32).to(torch.int64)
+    phase_fix = (n * c_fix) & _U32
+    phase = phase_fix.to(torch.float32) * (W / 2.0**32)  # [0, W]
+    p0 = torch.floor(phase)
+    frac = (phase - p0).reshape(-1)
+    p0 = torch.clamp(p0.to(torch.int64), 0, W - 1).reshape(-1)
+
+    # one row gather: row k*W + p holds (w_k[p], w_k[p+1], w_{k+1}[p],
+    # w_{k+1}[p+1]), p+1 wrapping around the table
+    knext = torch.arange(1, K + 1, device=table_waves.device)
+    wk1 = table_waves[torch.clamp(knext, max=K - 1)]
+    t4 = torch.stack([
+        table_waves, torch.roll(table_waves, -1, dims=1),
+        wk1, torch.roll(wk1, -1, dims=1),
+    ], dim=2).reshape(K * W, 4)
+    g = t4[k * W + p0]  # [N, 4]
+    wave = g[:, 0] * (1 - frac) + g[:, 1] * frac
+    if K > 1:
+        w1 = g[:, 2] * (1 - frac) + g[:, 3] * frac
+        wave = wave * (1 - blend) + w1 * blend
+    wave = wave.reshape(alive.shape)  # [nb, bl, P]
+
+    s = wave * velb * env * amp_mult
+    s = torch.where(alive, s, 0.0)
+    mono = torch.sum(s, dim=2).reshape(-1)
+    return torch.stack([mono, mono], dim=1)

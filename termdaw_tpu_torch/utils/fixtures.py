@@ -1,11 +1,15 @@
-"""Generated projects of the shapes the port's slice covers.
+"""Generated projects of the shapes the port covers.
 
-The two bench configurations of the render path (bench.py), written with
-numpy and the reference's JAX-free file writers so the same project can
-be loaded by either package:
+Four bench configurations of the render path (bench.py), written with
+numpy and the reference's JAX-free file writers (fileio.wav, fileio.midi,
+fileio.wavetable) so the same project can be loaded by either package:
 
 * c1 (bench.py:372-395): two SampleLoops -> Normalize, rendered at
   44.1 kHz 16-bit (a render resample when the project rate is higher);
+* c2 (bench.py:398-434): a SampleLerp kick and an Adsr envelope (drum
+  mode) ducking a looping pad on the kick hits -> Normalize, 16-bit;
+* c3 (bench.py:437-474): a 3-oscillator Synth bass and a wavetable
+  SampSyn chord track through a BandPass -> Normalize, 16-bit;
 * c5 (bench.py:485-528): n streamed SampleMulti tracks over one hit
   sample recorded at 96 kHz (resampled on import) -> Normalize, 32-bit.
 
@@ -20,8 +24,10 @@ from pathlib import Path
 import numpy as np
 
 from termdaw_tpu.config import Config
+from termdaw_tpu.fileio.midi import write_midi
 from termdaw_tpu.fileio.packets import PacketDecoder, encode_events
 from termdaw_tpu.fileio.wav import write_wav
+from termdaw_tpu.fileio.wavetable import WaveTable, write_wavetable
 
 
 def drum(path, sr, dur, freq, decay, noise=0.0, seed=0) -> None:
@@ -65,6 +71,76 @@ add_sampleloop("snare", 0.8, 10.0, "snare");
 add_normalize("sum", 1.0, 0.0);
 connect("kick", "sum");
 connect("snare", "sum");
+set_output("sum");
+""")
+    _toml(d, bl, sr)
+
+
+def write_c2_project(d: Path, length_sec: float, sr: int, bl: int) -> None:
+    """Config 2: an ADSR envelope ducking a looping pad on kick hits
+    (reference examples/neg-adsr-env-example.lua:15-17 shape)."""
+    d = Path(d)
+    d.mkdir(parents=True, exist_ok=True)
+    drum(d / "kick.wav", sr, 0.3, 55.0, 20.0)
+    t = np.arange(sr * 2) / sr
+    pad = (0.4 * np.sin(2 * np.pi * 110 * t)
+           + 0.2 * np.sin(2 * np.pi * 220.3 * t)).astype(np.float32)
+    write_wav(d / "bg.wav", np.stack([pad, pad], 1), sr, bits=16)
+    kicks = [(b * 0.5, 0.1, 36, 110) for b in range(int(length_sec * 2) - 1)]
+    write_midi(d / "kick.mid", kicks, bpm=120)
+    (d / "project.lua").write_text(f"""
+set_length({length_sec});
+set_render_samplerate({sr});
+set_render_bitdepth(16);
+set_output_file("{d}/outp.wav");
+load_sample("kick", "{d}/kick.wav", "");
+load_sample("bg", "{d}/bg.wav", "");
+load_midi_floww("kick", "{d}/kick.mid");
+add_sample_lerp("kick", 1.0, 0.0, "kick", "kick", -1, 40);
+add_sampleloop("bg", 1.0, 0.0, "bg");
+add_adsr("env", 1.0, 0.0, 1.0, "kick", false, false, -1,
+    {{ 1.0, 0.01, 0.3, 0.2, 0.3, 0.0, 0.0, 0.05, 1.0 }});
+add_normalize("sum", 1.0, 0.0);
+connect("kick", "sum");
+connect("bg", "env");
+connect("env", "sum");
+set_output("sum");
+""")
+    _toml(d, bl, sr)
+
+
+def write_c3_project(d: Path, length_sec: float, sr: int, bl: int) -> None:
+    """Config 3: a subtractive synth and a wavetable synth driven by MIDI
+    flowws through a band-pass."""
+    d = Path(d)
+    d.mkdir(parents=True, exist_ok=True)
+    bass, chords = [], []
+    for bar in range(int(length_sec / 2)):
+        t0 = bar * 2.0
+        root = [45, 41, 43, 48][bar % 4]
+        bass += [(t0, 0.9, root - 12, 100), (t0 + 1.0, 0.9, root - 5, 90)]
+        chords += [(t0, 1.8, root + 12, 70), (t0, 1.8, root + 16, 60),
+                   (t0, 1.8, root + 19, 65)]
+    write_midi(d / "bass.mid", bass, bpm=120)
+    write_midi(d / "chords.mid", chords, bpm=120)
+    write_wavetable(d / "table.wt", WaveTable.default())
+    (d / "project.lua").write_text(f"""
+set_length({length_sec});
+set_render_samplerate({sr});
+set_render_bitdepth(16);
+set_output_file("{d}/outp.wav");
+load_midi_floww("bass", "{d}/bass.mid");
+load_midi_floww("chords", "{d}/chords.mid");
+load_resource("tbl", "{d}/table.wt");
+hit = {{ 0.001, 0.02, 0.0, 0.0, 0.0, 0.0 }};
+note = {{ 0.01, 0.1, 0.8, 5.0, 0.2, 0.5 }};
+add_synth("bass", 0.5, 0.0, "bass", 0.4, 0.3, hit, 1.0, 0.8, note, 0.0, {{}});
+add_sampsyn("comp", 0.5, 0.0, "chords", note, "tbl");
+add_bandpass("band", 1.0, 0.0, 1.0, 8000, 30, true);
+add_normalize("sum", 1.0, 0.0);
+connect("bass", "band");
+connect("comp", "band");
+connect("band", "sum");
 set_output("sum");
 """)
     _toml(d, bl, sr)

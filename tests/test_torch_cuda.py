@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the voice-mix kernel against its plain version,
-and a small render on the card against the port's CPU render. This file
-imports no JAX, so it also runs where only the port is installed:
+"""The port on a CUDA card: the voice-mix and affine-scan kernels against
+their plain versions, small renders and playback on the card against the
+port's CPU path. This file imports no JAX, so it also runs where only the
+port is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
@@ -10,9 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from termdaw_tpu_torch.ops import voices
+from termdaw_tpu.engine.sink import Sink
+
+from termdaw_tpu_torch.engine.player import Player
+from termdaw_tpu_torch.ops import scan, voices
 from termdaw_tpu_torch.utils.fixtures import (
-    load_state, read_wav_ints, write_c5_project,
+    load_state, read_wav_ints, write_c2_project, write_c3_project,
+    write_c5_project,
 )
 
 pytestmark = pytest.mark.cuda
@@ -74,3 +79,72 @@ def test_small_c5_render_on_card_matches_cpu(cuda, tmp_path):
     load_state(tmp_path, torch.device("cpu"), packets).render()
     want, _ = read_wav_ints(tmp_path / "mix.wav")
     assert np.abs(got - want).max() <= 1
+
+
+@pytest.mark.parametrize("T", [1, 5, 1000, 1025, 100003, 384000])
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_scan_kernel_matches_plain_on_card(cuda, T, C):
+    """The kernel runs the recurrence sequentially within chunks, the
+    plain version as a two-level log-step scan: both are held to a
+    float64 recurrence at 1e-4 (the reference's bound) and to each other
+    at 1e-5, relative to the largest |y|."""
+    rng = np.random.default_rng(T * 10 + C)
+    b = rng.normal(size=(T, C)).astype(np.float32)
+    a = rng.uniform(0.0, 0.999, C).astype(np.float32)
+    a[0] = 0.99584  # the 30 Hz lane at 48 kHz
+    y0 = rng.normal(size=C).astype(np.float32)
+    args = [torch.from_numpy(v).to(cuda) for v in (b, a, y0)]
+    n0 = scan.launches
+    got = scan.affine_scan(*args)
+    torch.cuda.synchronize()
+    assert scan.launches == n0 + 1
+    want = scan.affine_scan_plain(*args)
+    y64 = np.empty((T, C))
+    prev = y0.astype(np.float64)
+    a64 = a.astype(np.float64)
+    for t in range(T):  # vectorised over lanes
+        prev = a64 * prev + b[t]
+        y64[t] = prev
+    scale = max(1.0, np.abs(y64).max())
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(g, y64, rtol=0, atol=1e-4 * scale)
+    np.testing.assert_allclose(w, y64, rtol=0, atol=1e-4 * scale)
+    np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("write", [write_c2_project, write_c3_project])
+def test_small_c2_c3_renders_on_card_match_cpu(cuda, tmp_path, write):
+    write(tmp_path, 2.0, 8000, 256)
+    n0 = scan.launches
+    load_state(tmp_path, cuda).render()
+    if write is write_c3_project:
+        assert scan.launches > n0  # the band-pass ran the kernel
+    got, _ = read_wav_ints(tmp_path / "outp.wav")
+    load_state(tmp_path, torch.device("cpu")).render()
+    want, _ = read_wav_ints(tmp_path / "outp.wav")
+    assert np.abs(got).max() > 16000
+    assert np.abs(got - want).max() <= 1
+
+
+class _CaptureSink(Sink):
+    def __init__(self) -> None:
+        self.chunks: list[np.ndarray] = []
+
+    def queue_audio(self, interleaved: np.ndarray) -> None:
+        self.chunks.append(np.array(interleaved, np.float32, copy=True))
+
+
+def test_player_on_card(cuda, tmp_path):
+    """play() on the card queues host audio equal to the CPU render of the
+    same blocks (atol 1e-5); tick() goes on queueing finite audio."""
+    write_c2_project(tmp_path, 2.0, 8000, 256)
+    sink = _CaptureSink()
+    player = Player(load_state(tmp_path, cuda), sink, 8000, 256)
+    player.play()
+    (pre,) = sink.chunks
+    cpu = load_state(tmp_path, torch.device("cpu"))
+    want = cpu.compiled.render_window(cpu.fb, Player.PREBUFFER_BLOCKS)
+    np.testing.assert_allclose(pre, want.numpy().reshape(-1), rtol=0,
+                               atol=1e-5)
+    assert player.tick() >= 1
+    assert all(np.isfinite(c).all() for c in sink.chunks[1:])

@@ -7,6 +7,7 @@ kernel in interpret mode, the bake layout the port copies) and
 TERMDAW_MESH=0 (without it the suite's 8 virtual CPU devices would shard
 the render and take the unfused gather path)."""
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -20,9 +21,11 @@ from termdaw_tpu.engine.state import State as RefState
 from termdaw_tpu.fileio.packets import PacketDecoder
 
 from termdaw_tpu_torch import cli
+from termdaw_tpu_torch.graph import bake as B
 from termdaw_tpu_torch.ops import voices
 from termdaw_tpu_torch.utils.fixtures import (
-    load_state, read_wav_ints, write_c1_project, write_c5_project,
+    load_state, read_wav_ints, write_c1_project, write_c2_project,
+    write_c3_project, write_c5_project,
 )
 
 from .conftest import scrubbed_env
@@ -35,6 +38,9 @@ CPU = torch.device("cpu")
 C5 = dict(length_sec=2.0, sr=8000, bl=256, n_tracks=8, hit_sr=16000, bd=16)
 # small c1 with a 2:1 render resample
 C1 = dict(length_sec=2.0, sr=8000, bl=256, render_sr=4000, bd=16)
+# small c2 (SampleLerp, Adsr) and c3 (Synth, SampSyn, BandPass)
+SMALL = dict(length_sec=2.0, sr=8000, bl=256)
+WRITERS = {"c2": write_c2_project, "c3": write_c3_project}
 
 
 def _ref_state(d, monkeypatch, packets=b""):
@@ -134,17 +140,87 @@ def test_load_reference_state_continues_the_render(tmp_path, monkeypatch):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("cfg", ["c2", "c3"])
+def test_c2_c3_small_match_reference(tmp_path, monkeypatch, cfg):
+    """The whole song as one window at atol 1e-5, then both renders to
+    16-bit WAVs within one count."""
+    WRITERS[cfg](tmp_path, **SMALL)
+    ref = _ref_state(tmp_path, monkeypatch)
+    port = load_state(tmp_path, CPU)
+    nb = port.cs
+    want = _window(ref, nb)
+    got = _window(port, nb)
+    assert got.shape == want.shape == (nb * SMALL["bl"], 2)
+    assert np.abs(want).max() > 0.5
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    ref.compiled.set_time(0)
+    port.compiled.set_time(0)
+    want_i, rate = _render_ints(ref, tmp_path / "outp.wav")
+    got_i, rate_p = _render_ints(port, tmp_path / "outp.wav")
+    assert rate == rate_p == SMALL["sr"] and got_i.shape == want_i.shape
+    assert np.abs(got_i - want_i).max() <= 1
+
+
+def test_c3_set_time_mid_render_matches_reference(tmp_path, monkeypatch):
+    """A seek mid-render re-primes the band-pass and clears the Synth's
+    notes (SampSyn voices keep their clocks), as the reference does."""
+    write_c3_project(tmp_path, **SMALL)
+    ref = _ref_state(tmp_path, monkeypatch)
+    port = load_state(tmp_path, CPU)
+    cg = port.compiled
+    bass = cg.graph.name_map["bass"]
+    band = cg.graph.name_map["band"]
+    for st in (ref, port):
+        _window(st, 20)
+    assert cg.carries[bass].notes and not cg.num_state[f"{band}.bp"].first
+    for st in (ref, port):
+        st.compiled.set_time(3000)
+    assert cg.carries[bass] == B.NotesCarry()
+    assert bool(cg.num_state[f"{band}.bp"].first)
+    np.testing.assert_allclose(_window(port, 24), _window(ref, 24), rtol=0,
+                               atol=1e-5)
+
+
+def test_load_reference_state_continues_c3(tmp_path, monkeypatch):
+    """The reference renders c3 up to mid-timeline and hands over its
+    band-pass state, its note carries and its time."""
+    write_c3_project(tmp_path, **SMALL)
+    ref = _ref_state(tmp_path, monkeypatch)
+    port = load_state(tmp_path, CPU)
+    _window(ref, 30)
+    rcg = ref.compiled
+    port.compiled.load_reference_state(rcg.num_state, rcg.carries,
+                                       rcg.get_time())
+    pcg = port.compiled
+    comp = pcg.graph.name_map["comp"]
+    assert pcg.carries[comp].notes and all(
+        isinstance(n, B.NoteInst) for n in pcg.carries[comp].notes)
+    assert {vi: dataclasses.astuple(c) for vi, c in pcg.carries.items()} == {
+        vi: dataclasses.astuple(c) for vi, c in rcg.carries.items()}
+    band = pcg.graph.name_map["band"]
+    np.testing.assert_array_equal(
+        pcg.num_state[f"{band}.bp"].prevs.numpy(),
+        np.asarray(rcg.num_state[f"{band}.bp"].prevs))
+    np.testing.assert_allclose(_window(port, 24), _window(ref, 24), rtol=0,
+                               atol=1e-5)
+
+
 def test_port_render_never_imports_jax(tmp_path):
     script = f"""
 import sys
 import torch
 from termdaw_tpu_torch.utils.fixtures import (
-    load_state, write_c1_project, write_c5_project)
+    load_state, write_c1_project, write_c2_project, write_c3_project,
+    write_c5_project)
 packets = write_c5_project({str(tmp_path / 'c5')!r}, 1.0, 8000, 256,
                            n_tracks=3, hit_sr=16000, bd=16)
 load_state({str(tmp_path / 'c5')!r}, torch.device('cpu'), packets).render()
 write_c1_project({str(tmp_path / 'c1')!r}, 1.0, 8000, 256, render_sr=4000)
 load_state({str(tmp_path / 'c1')!r}, torch.device('cpu')).render()
+write_c2_project({str(tmp_path / 'c2')!r}, 1.0, 8000, 256)
+load_state({str(tmp_path / 'c2')!r}, torch.device('cpu')).render()
+write_c3_project({str(tmp_path / 'c3')!r}, 2.0, 8000, 256)
+load_state({str(tmp_path / 'c3')!r}, torch.device('cpu')).render()
 assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)
 print('JAXFREE')
 """
@@ -154,8 +230,9 @@ print('JAXFREE')
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "JAXFREE" in proc.stdout
+    for cfg in ("c1", "c2", "c3"):
+        assert (tmp_path / cfg / "outp.wav").exists()
     assert (tmp_path / "c5" / "mix.wav").exists()
-    assert (tmp_path / "c1" / "outp.wav").exists()
 
 
 def test_cli_render_writes_the_wav(tmp_path):
@@ -183,7 +260,8 @@ def test_cli_cuda_without_a_card_exits_nonzero(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("decl", [
-    'add_synth("syn", 1.0, 0.0, "f", 0.4, 0.3, {}, 0.0, 0.0, {}, 0.0, {});',
+    'load_lv2("dly", "native:delay");\n'
+    'add_lv2fx("fx", 1.0, 0.0, 0.5, "dly");',
     'load_lv2("verb", "native:reverb");\n'
     'add_lv2fx("fx", 1.0, 0.0, 0.5, "verb");',
 ])
@@ -195,9 +273,10 @@ def test_unported_vertex_aborts_the_refresh(tmp_path, capsys, decl):
     (tmp_path / "project.lua").write_text(f"""
 set_length(1.0);
 declare_floww("f", {{ {{0.1, 60, 0.9}}, {{0.5, 60, 0.0}} }});
+add_synth("syn", 1.0, 0.0, "f", 0.4, 0.3, {{}}, 0.0, 0.0, {{}}, 0.0, {{}});
 {decl}
 add_sum("out", 1.0, 0.0);
-connect("syn", "out");
+connect("syn", "fx");
 connect("fx", "out");
 set_output("out");
 """)
