@@ -7,8 +7,9 @@ Phases, each printing one JSON line; any failure exits non-zero without
 the final line:
 
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
-2. build: compiles csrc/voice_mix.cu and csrc/affine_scan.cu with nvcc
-   for sm_90a, one nvcc process each, in parallel;
+2. build: compiles every kernel (csrc/voice_mix.cu, affine_scan.cu,
+   max_decay_scan.cu, complex_scan.cu) with nvcc for sm_90a, one nvcc
+   process each, all in parallel;
 3. the voice-mix kernel against its plain PyTorch version on the card at
    the c5 render's shapes (375 blocks of 1024 frames, 16 slots, a
    two-sample concat buffer), tolerance 1e-6;
@@ -29,9 +30,24 @@ the final line:
 8. playback: the port's Player on cuda with c2 and a capturing sink;
    play() queues the 16-block prebuffer, equal to the CPU render of the
    same blocks (atol 1e-5); a few tick()s queue more finite audio;
-9. timings after one warm-up: render_device wall time (synchronized) for
-   c5, c1, c2 and c3, and each kernel against its plain version (CUDA
-   events).
+9. the effects' scans at c4's shapes, each kernel against its plain
+   version and a float64 recurrence (the rules of phase 4): max-decay at
+   one compressor window (375 x 1024 frames, 1 lane, release 250 ms at
+   48 kHz), complex-scan at one eq3 stage (375 x 1024 frames, 4 lanes,
+   the poles of the 180 Hz and 4 kHz crossovers), affine-scan at the
+   feedback lines (the longest reverb comb, D = 1785, 1 lane; the delay,
+   D = 5760, 2 lanes);
+10. c4 end to end (the reference's demo project with the reverb ->
+   compressor -> eq3 -> delay chain, 48 kHz / 1024, 40 s -> 44.1 kHz
+   16-bit): refresh + render on cuda, which must launch all four kernels,
+   and the WAV against the port's CPU render, as in phase 5;
+11. timings after one warm-up: render_device wall time (synchronized),
+   the median of 5, for c5, c1, c2, c3 and c4, and each kernel against
+   its plain version (CUDA events);
+12. torch.profiler traces of two c4 renders: the first as it runs
+   (device time in all and in each kernel, device launches, device busy
+   share of the wall), the second with each effect fenced by
+   synchronizes (the effects' device time).
 
 Then the card line, the kernels line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -57,6 +73,7 @@ KERNEL_ATOL = 1e-6
 SCAN_T, SCAN_C = 375 * BL, 4                  # one c3 band-pass window
 SCAN_F64_RTOL, SCAN_PLAIN_RTOL = 1e-4, 1e-5   # relative to max |y|
 PLAYER_ATOL = 1e-5
+COMB_D, DELAY_D = 1785, 5760                  # c4's feedback lines at 48 kHz
 
 
 def emit(phase: str, **fields) -> None:
@@ -114,6 +131,178 @@ def recurrence64(b: np.ndarray, a: np.ndarray, y0: np.ndarray) -> np.ndarray:
         prev = a64 * prev + b[t]
         y[t] = prev
     return y
+
+
+def max_decay64(x: np.ndarray, r: np.ndarray, y0: np.ndarray) -> np.ndarray:
+    y = np.empty(x.shape, np.float64)
+    prev = y0.astype(np.float64)
+    r64 = r.astype(np.float64)
+    for t in range(x.shape[0]):
+        prev = np.maximum(x[t], r64 * prev)
+        y[t] = prev
+    return y
+
+
+def complex64(f: np.ndarray, p: np.ndarray, s: np.ndarray) -> np.ndarray:
+    u = np.empty(f.shape, np.complex128)
+    prev = s.astype(np.complex128)
+    p128 = p.astype(np.complex128)
+    for t in range(f.shape[0]):
+        prev = p128 * prev + f[t]
+        u[t] = prev
+    return u
+
+
+def fx_scan_inputs(device: torch.device) -> dict:
+    """The effects' scans at c4's shapes, from numpy seeds, as (host
+    arrays, device tensors) per scan:
+    * max_decay: the compressor's level max|x| of one window, r of the
+      250 ms release at 48 kHz computed as the effect computes it;
+    * complex: the second pole of one eq3 stage, lanes [L, R] at the
+      180 Hz crossover and [L, R] at 4 kHz, fed the float64 first cascade
+      of a seeded input through each section's feed-forward taps;
+    * comb / delay: feedback_line's [rows, D*C] layout of a seeded input,
+      a = the comb's feedback (room 0.84 * 0.94) or the delay's 0.35."""
+    from termdaw_tpu_torch.ops.filters import biquad_coefs
+
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(SCAN_T, 2)).astype(np.float32)
+    out = {}
+    rel = torch.tensor(250.0, dtype=torch.float32)
+    r = torch.exp(-1.0 / (rel * 0.001 * SR)).reshape(1).numpy()
+    out["max_decay"] = (np.abs(x).max(axis=1, keepdims=True), r,
+                        np.zeros(1, np.float32))
+    p1, f = [], []
+    for fc in (180.0, 180.0, 4000.0, 4000.0):
+        b0, b1, b2, a1, a2 = biquad_coefs("lowpass", fc, SR)
+        p1.append((-a1 + 1j * np.sqrt(4 * a2 - a1 * a1)) / 2)
+        xx = x[:, len(f) % 2].astype(np.float64)
+        f.append(b0 * xx + b1 * np.r_[0.0, xx[:-1]]
+                 + b2 * np.r_[0.0, 0.0, xx[:-2]])
+    p1 = np.asarray(p1)
+    u = complex64(np.stack(f, 1), p1, np.zeros(4)).astype(np.complex64)
+    p2 = np.conj(p1).astype(np.complex64)
+    out["complex"] = (np.ascontiguousarray(u.real),
+                      np.ascontiguousarray(u.imag), p2.real.copy(),
+                      p2.imag.copy(), np.zeros(4, np.float32),
+                      np.zeros(4, np.float32))
+    for name, D, C, g in (("comb", COMB_D, 1, np.float32(0.84) *
+                           np.float32(0.94)), ("delay", DELAY_D, 2, 0.35)):
+        rows = -(-SCAN_T // D)
+        xp = np.zeros((rows * D, C), np.float32)
+        xp[:SCAN_T] = x[:, :C]
+        out[name] = (xp.reshape(rows, D * C), np.full(D * C, g, np.float32),
+                     rng.normal(size=D * C).astype(np.float32))
+    return {k: (v, [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                    for a in v]) for k, v in out.items()}
+
+
+def scan_check(name, got, want, y64) -> dict:
+    """Kernel and plain within SCAN_F64_RTOL of float64 and within
+    SCAN_PLAIN_RTOL of each other, relative to max |y|."""
+    got, want = np.asarray(got), np.asarray(want)
+    scale = max(1.0, float(np.abs(y64).max()))
+    check(bool(np.isfinite(got).all()), f"{name} kernel output not finite")
+    err = float(np.abs(got - want).max())
+    err64 = float(np.abs(got - y64).max())
+    plain64 = float(np.abs(want - y64).max())
+    check(err64 <= SCAN_F64_RTOL * scale,
+          f"{name} kernel vs float64 max |diff| {err64} > {SCAN_F64_RTOL} "
+          f"* {scale}")
+    check(plain64 <= SCAN_F64_RTOL * scale,
+          f"{name} plain vs float64 max |diff| {plain64} > {SCAN_F64_RTOL} "
+          f"* {scale}")
+    check(err <= SCAN_PLAIN_RTOL * scale,
+          f"{name} kernel vs plain max |diff| {err} > {SCAN_PLAIN_RTOL} * "
+          f"{scale}")
+    return {"max_abs_y": scale, "kernel_vs_plain": err,
+            "kernel_vs_f64": err64, "plain_vs_f64": plain64}
+
+
+def profiled_render(st, fenced: bool):
+    """One render_device under torch.profiler (CPU + CUDA): (wall seconds,
+    device rows, {effect: [(start_us, end_us), ...]}). With `fenced`, each
+    effect's process runs between two synchronizes inside a host range
+    "fx:<kind>", so every device row that starts inside that range is the
+    effect's own work."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from termdaw_tpu_torch.ops import fx
+
+    def fenced_process(kind, process):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            with record_function(f"fx:{kind}"):
+                out = process(*a, **k)
+                torch.cuda.synchronize()
+            return out
+        return run
+
+    saved = dict(fx.EFFECTS)
+    if fenced:
+        for k, e in saved.items():
+            fx.EFFECTS[k] = dataclasses.replace(
+                e, process=fenced_process(k, e.process))
+    try:
+        st.fb.set_time(st.compiled.get_time())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            st.render_device()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        st.compiled.set_time(0)
+    finally:
+        fx.EFFECTS.update(saved)
+    # device rows: kernels, copies and fills; a host range also shows as a
+    # device-side annotation of the same name, left out of the rows
+    cuda_t = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    dev = [e for e in events
+           if e.device_type == cuda_t and not e.name.startswith("fx:")]
+    ranges: dict[str, list] = {}
+    for e in events:
+        if e.device_type != cuda_t and e.name.startswith("fx:"):
+            ranges.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    return wall, dev, ranges
+
+
+def profile_render(st) -> dict:
+    """Two profiled c4 renders. The first, as the render runs: device time
+    in all and in each of the port's kernels, device launches, and the
+    device busy share of the profiled wall. The second with each effect
+    fenced (see profiled_render): the effects' device time."""
+    from termdaw_tpu_torch.engine.state import render_chunk_blocks
+
+    def ms(rows) -> float:
+        return sum(e.device_time_total for e in rows) / 1e3
+
+    wall, dev, _ = profiled_render(st, fenced=False)
+    device_ms = ms(dev)
+    check(device_ms > 0, "the profiler saw no device time")
+    mine = {}
+    for k in ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan"):
+        ks = [e for e in dev if k + "_kernel" in e.name]
+        mine[k] = {"ms": ms(ks), "launches": len(ks)}
+    _, fdev, ranges = profiled_render(st, fenced=True)
+    fx_ms = {name: ms(e for e in fdev if any(
+        lo <= e.time_range.start < hi for lo, hi in spans))
+        for name, spans in ranges.items()}
+    eq3_complex = ms(e for e in fdev if "complex_scan_kernel" in e.name)
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "device_busy_share": device_ms / (wall * 1e3),
+            "effects_device_ms": fx_ms,
+            "effects_share_of_device": sum(fx_ms.values()) / ms(fdev),
+            # every complex scan of c4 runs in the eq3: a check of the
+            # attribution
+            "eq3_holds_complex_scans": fx_ms.get("fx:eq3", 0.0) >=
+            eq3_complex,
+            "device_launches": len(dev),
+            "windows": -(-st.cs // render_chunk_blocks(st.cs)),
+            "kernels": mine}
 
 
 def render_wav(fixtures, d, device, packets, wav):
@@ -198,12 +387,13 @@ def main() -> int:
 
     def reset_counts():
         voices.launches = scan.launches = 0
+        scan.max_decay_launches = scan.complex_launches = 0
 
     # 2. build
     t0 = time.perf_counter()
-    libs = kernels.build_all(["voice_mix", "affine_scan"])
-    kernels.voice_mix_lib()
-    kernels.affine_scan_lib()
+    libs = kernels.build_all(kernels.KERNELS)
+    for name in kernels.KERNELS:
+        getattr(kernels, f"{name}_lib")()
     emit("build", seconds=time.perf_counter() - t0, ptxas={
         f"termdaw_tpu_torch/csrc/{name}.cu": [
             ln.strip() for ln in lib.with_suffix(".log").read_text()
@@ -335,25 +525,93 @@ def main() -> int:
              prebuffer_max_abs_diff=pre_err, atol=PLAYER_ATOL,
              ticked_blocks=ticked, chunks=len(sink.chunks))
 
-        # 9. timings
+        # 9. the effects' scans at c4's shapes
+        fxin = fx_scan_inputs(cuda)
+        host, dev = fxin["max_decay"]
+        mgot = scan.max_decay_scan(*dev)
+        torch.cuda.synchronize()
+        mres = scan_check("max_decay", mgot.cpu(),
+                          scan.max_decay_scan_plain(*dev).cpu(),
+                          max_decay64(*host))
+        host, dev = fxin["complex"]
+        cgot = scan.complex_affine_scan(*dev)
+        torch.cuda.synchronize()
+        cwant = scan.complex_affine_scan_plain(*dev)
+        c64 = complex64(host[0] + 1j * host[1].astype(np.float64),
+                        host[2] + 1j * host[3].astype(np.float64),
+                        np.zeros(4))
+        cres = {part: scan_check(f"complex_{part}", g.cpu(), w.cpu(), y)
+                for part, g, w, y in (("re", cgot[0], cwant[0], c64.real),
+                                      ("im", cgot[1], cwant[1], c64.imag))}
+        fres = {}
+        for name in ("comb", "delay"):
+            host, dev = fxin[name]
+            fgot = scan.affine_scan(*dev)
+            torch.cuda.synchronize()
+            fres[name] = scan_check(name, fgot.cpu(),
+                                    scan.affine_scan_plain(*dev).cpu(),
+                                    recurrence64(*host))
+        emit("fx_scans_vs_plain", T=SCAN_T, max_decay=mres, complex=cres,
+             comb_D=COMB_D, comb=fres["comb"], delay_D=DELAY_D,
+             delay=fres["delay"], rtol_f64=SCAN_F64_RTOL,
+             rtol_plain=SCAN_PLAIN_RTOL)
+
+        # 10. c4 end to end
+        d4 = tmp / "c4"
+        fixtures.write_c4_project(d4, SECONDS, SR, BL, render_sr=44100,
+                                  bd=16)
+        reset_counts()
+        t0 = time.perf_counter()
+        st4, gpu4, rate4 = render_wav(fixtures, d4, cuda, b"",
+                                      d4 / "outp.wav")
+        c4_wall = time.perf_counter() - t0
+        c4_counts = {"voice_mix": voices.launches,
+                     "affine_scan": scan.launches,
+                     "max_decay_scan": scan.max_decay_launches,
+                     "complex_scan": scan.complex_launches}
+        for k, n in c4_counts.items():
+            check(n > 0, f"the c4 render launched no {k} kernel")
+        _, cpu4, _ = render_wav(fixtures, d4, cpu, b"", d4 / "outp.wav")
+        emit("c4_end_to_end", seconds=SECONDS, sr=SR, render_sr=44100,
+             bd=16, launches=c4_counts, first_render_wall_s=c4_wall,
+             **compare("c4", gpu4, cpu4, 16, rate4, 44100,
+                       2 * -(-st4.cs * BL * 147 // 160)))
+
+        # 11. timings
         c5_s = wall_render(st5, 5)
         c1_s = wall_render(st1, 5)
         c2_s = wall_render(st23["c2"], 5)
         c3_s = wall_render(st23["c3"], 5)
+        c4_s = wall_render(st4, 5)
         kernel_ms = event_ms(
             lambda: voices.voice_mix_stereo(*args, C5_NB, BL), 50)
         plain_ms = event_ms(
             lambda: voices.voice_mix_stereo_plain(*args, C5_NB, BL), 20)
         scan_ms = event_ms(lambda: scan.affine_scan(*sargs), 50)
         scan_plain_ms = event_ms(lambda: scan.affine_scan_plain(*sargs), 20)
+        fx_ms = {}
+        for name, fn, plain in (
+            ("max_decay", scan.max_decay_scan, scan.max_decay_scan_plain),
+            ("complex", scan.complex_affine_scan,
+             scan.complex_affine_scan_plain),
+            ("comb", scan.affine_scan, scan.affine_scan_plain),
+            ("delay", scan.affine_scan, scan.affine_scan_plain),
+        ):
+            dev = fxin[name][1]
+            fx_ms[f"{name}_kernel_ms"] = event_ms(lambda: fn(*dev), 50)
+            fx_ms[f"{name}_plain_ms"] = event_ms(lambda: plain(*dev), 20)
         emit("timings", card=card,
              c5_render_device_s=c5_s, c5_median_s=statistics.median(c5_s),
              c1_render_device_s=c1_s, c1_median_s=statistics.median(c1_s),
              c2_render_device_s=c2_s, c2_median_s=statistics.median(c2_s),
              c3_render_device_s=c3_s, c3_median_s=statistics.median(c3_s),
+             c4_render_device_s=c4_s, c4_median_s=statistics.median(c4_s),
              voice_mix_kernel_ms=kernel_ms, voice_mix_plain_ms=plain_ms,
              affine_scan_kernel_ms=scan_ms,
-             affine_scan_plain_ms=scan_plain_ms)
+             affine_scan_plain_ms=scan_plain_ms, **fx_ms)
+
+        # 12. a profile of one c4 render
+        emit("c4_profile", card=card, **profile_render(st4))
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -374,6 +632,24 @@ def main() -> int:
         "max_abs_err": scan_err,
         "ms": scan_ms,
         "plain_ms": scan_plain_ms,
+    }, {
+        "name": "max_decay_scan",
+        "route": "cuda",
+        "source": "termdaw_tpu_torch/csrc/max_decay_scan.cu",
+        "replaces": "termdaw_tpu/ops/fx.py:63",
+        "launches": c4_counts["max_decay_scan"],
+        "max_abs_err": mres["kernel_vs_plain"],
+        "ms": fx_ms["max_decay_kernel_ms"],
+        "plain_ms": fx_ms["max_decay_plain_ms"],
+    }, {
+        "name": "complex_affine_scan",
+        "route": "cuda",
+        "source": "termdaw_tpu_torch/csrc/complex_scan.cu",
+        "replaces": "termdaw_tpu/ops/filters.py:316",
+        "launches": c4_counts["complex_scan"],
+        "max_abs_err": max(r["kernel_vs_plain"] for r in cres.values()),
+        "ms": fx_ms["complex_kernel_ms"],
+        "plain_ms": fx_ms["complex_plain_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count,

@@ -12,10 +12,11 @@ only the JAX-free host layers (`lua`, `fileio`, `banks.flowwbank`,
 over as a module of its own, whose docstring names the file it came from.
 
 Ported so far: the offline render (`State.render`) and playback (`play`
-in the manual workflow) of graphs made of every vertex kind but the
-effects: Sum, Normalize, SampleLoop, SampleMulti, SampleLerp, DebugSine,
-Synth, SampSyn, Adsr and BandPass. `load_lv2` and effect vertices abort
-the refresh with a "not yet ported" message.
+in the manual workflow) of graphs made of every vertex kind: Sum,
+Normalize, SampleLoop, SampleMulti, SampleLerp, DebugSine, Synth,
+SampSyn, Adsr, BandPass and the native effects behind `load_lv2` /
+`add_lv2fx` (reverb, chorus, compressor, tape, delay, bitcrush, eq3,
+flanger).
 
     python -m termdaw_tpu_torch [--device cuda|cpu] [workdir]
 """

@@ -6,9 +6,11 @@ graph rebuild) is carried over unchanged; what differs:
 
 * `State(config, wdir, device=...)` renders on an explicit torch.device;
   nothing falls back to another device;
-* the compile step builds the port's CompiledGraph; it renders every
-  vertex kind but the effects: `load_lv2` (engine/plugins.py) and an
-  effect vertex abort the refresh with a "not yet ported" message;
+* the compile step builds the port's CompiledGraph, which renders every
+  vertex kind, the native effects (engine/plugins.py, ops/fx.py) among
+  them; a graph the port cannot build yet (an eq3 with
+  TERMDAW_EXACT_BIQUAD=1) aborts the refresh with a "not yet ported"
+  message;
 * there is no backend guard and no mesh: renders run on one device, in
   windows of `render_chunk_blocks(cs)` blocks;
 * `render_device` returns device int tensors, which `render` copies to
@@ -496,7 +498,7 @@ class State:
         try:
             self.compiled = CompiledGraph(
                 self.g, self.sb, bl, device=self.device,
-                wavetables=wavetables,
+                wavetables=wavetables, plugin_host=self.host,
             )
         except NotImplementedError as e:
             print(f"{RED}TermDaw: {e}{DEFAULT}")

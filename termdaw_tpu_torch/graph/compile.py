@@ -14,8 +14,16 @@ explicit device instead of as a jitted XLA program:
   `_unpack_bakes` slices;
 * `render_window` live-bakes every window (the reference's
   TERMDAW_PREBAKE=0 semantics: no prebaked or recorded chains);
-* `_program` has an arm for every vertex kind but PLUGINFX (the effects),
-  which raises NotImplementedError at build;
+* `_program` has an arm for every vertex kind. The PLUGINFX arm (the
+  native effects, ops/fx.py) takes its traced params from `_pack_fx`
+  (one f32 upload per PluginHost change) and its wet gate from the host:
+  with wet < 1e-4 the input passes and the `.fx` state is left as it was,
+  without running the effect (the reference's `jnp.where` leaf by leaf
+  gives the same values);
+* TERMDAW_EXACT_BIQUAD=1, read once at build as the reference does, makes
+  the build of a graph with a biquad effect raise NotImplementedError:
+  the exact sequential biquad lane is not ported, and the parallel lane
+  is never substituted for it;
 * the frame -> seconds table (`time_table`, a correctly rounded f32
   division on the host) is uploaded once per size on the graph's device
   and sliced per window, for the synths' `time2d` and every envelope's
@@ -43,13 +51,9 @@ from termdaw_tpu.banks.flowwbank import FlowwBank
 
 from . import bake as B
 from . import graph as G
-from ..ops import envelope, filters, mix, sampler, synthv, voices
+from ..ops import envelope, filters, fx, mix, sampler, synthv, voices
 from ..ops.filters import BandPassState
 
-PORTED_KINDS = (
-    G.SUM, G.NORMALIZE, G.SAMPLELOOP, G.SAMPLEMULTI, G.SAMPLELERP,
-    G.DEBUGSINE, G.SYNTH, G.SAMPSYN, G.ADSR, G.BANDPASS,
-)
 # kinds whose window kernels read absolute frames / the time table
 _FRAME_KINDS = (G.SAMPLELERP, G.DEBUGSINE, G.SYNTH, G.SAMPSYN, G.ADSR)
 _TIME_KINDS = (G.DEBUGSINE, G.SYNTH, G.SAMPSYN, G.ADSR)
@@ -145,6 +149,29 @@ def _port_value(v):
     return copy.deepcopy(v)
 
 
+def _tree_to_device(v, like, dev: torch.device, where: str):
+    """A reference effect state (dicts and tuples of arrays) as the port's
+    tensors on `dev`, checked against the port's own state `like` for the
+    same effect (keys, lengths, shapes)."""
+    if isinstance(like, dict):
+        if not isinstance(v, dict) or set(v) != set(like):
+            raise ValueError(f"{where}: state keys {sorted(v)} do not match "
+                             f"{sorted(like)}")
+        return {k: _tree_to_device(v[k], like[k], dev, f"{where}.{k}")
+                for k in like}
+    if isinstance(like, tuple):
+        if len(v) != len(like):
+            raise ValueError(f"{where}: {len(v)} entries, expected "
+                             f"{len(like)}")
+        return tuple(_tree_to_device(a, b, dev, f"{where}[{i}]")
+                     for i, (a, b) in enumerate(zip(v, like)))
+    t = torch.tensor(np.asarray(v, np.float32), device=dev)
+    if t.shape != like.shape:
+        raise ValueError(f"{where}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(like.shape)}")
+    return t
+
+
 @dataclass(frozen=True)
 class _VertexStatic:
     """Per-vertex configuration resolved at build."""
@@ -164,6 +191,10 @@ class _VertexStatic:
     hgamma: float = 0.0
     wt_pos: int | None = None          # position in self.wavetables
     release_sec: float = 0.0           # synth-family note retention
+    fx_kind: str = ""                  # key into ops.fx.EFFECTS
+    fx_plugin_index: int = 0
+    fx_static: tuple = ()              # ((name, value), ...) bound at build
+    fx_skip: bool = False              # f32(wet) < 1e-4: the effect is off
 
 
 class CompiledGraph:
@@ -175,6 +206,7 @@ class CompiledGraph:
         *,
         device: torch.device,
         wavetables: dict[int, Any] | None = None,  # vertex -> WaveTable
+        plugin_host=None,  # engine.plugins.PluginHost, for effect vertices
     ) -> None:
         self.graph = graph
         self.bl = bl
@@ -184,14 +216,7 @@ class CompiledGraph:
         self.in_edges = [list(e) for e in graph.in_edges]
         self.output = graph.output_vertex
         self.t = graph.t
-        for vi in self.order:
-            kind = graph.vertices[vi].kind
-            if kind not in PORTED_KINDS:
-                raise NotImplementedError(
-                    f'vertex "{graph.names[vi]}": kind "{kind}" is not yet '
-                    f"ported to termdaw_tpu_torch (ported: "
-                    f"{', '.join(PORTED_KINDS)})"
-                )
+        self.plugin_host = plugin_host
         dev = self.device
 
         # device-resident constants (one upload each)
@@ -266,8 +291,29 @@ class CompiledGraph:
                 kw["pass_mode"] = p["pass_mode"]
                 kw["lgamma"] = filters.gamma_from_cutoff(p["cut_low"], sr)
                 kw["hgamma"] = filters.gamma_from_cutoff(p["cut_high"], sr)
+            if v.kind == G.PLUGINFX:
+                plug = plugin_host.get(p["plugin_index"])
+                kw["fx_plugin_index"] = p["plugin_index"]
+                kw["fx_kind"] = plug.effect.kind
+                kw["fx_skip"] = bool(np.float32(v.wet) < np.float32(1e-4))
+                # static params (delay-line lengths, biquad coefs) bind
+                # here; changing one takes a rebuild at refresh
+                kw["fx_static"] = tuple(sorted(fx.static_values(
+                    plug.effect, plugin_host.param_values(p["plugin_index"])
+                ).items()))
             self.statics[vi] = _VertexStatic(**kw)
+        # read once at build (reference compile.py:297)
+        if filters.exact_biquad_env():
+            for vi in self.order:
+                if self.statics[vi].fx_kind in fx.BIQUAD_EFFECTS:
+                    raise NotImplementedError(
+                        f'vertex "{graph.names[vi]}": the exact biquad lane '
+                        f"(TERMDAW_EXACT_BIQUAD=1) is not yet ported to "
+                        f"termdaw_tpu_torch; unset it to render "
+                        f"{self.statics[vi].fx_kind} with the parallel lane"
+                    )
         kinds = {st.kind for st in self.statics.values()}
+        self._has_fx = G.PLUGINFX in kinds
         self._uses_frames = bool(kinds.intersection(_FRAME_KINDS))
         self._uses_time = bool(kinds.intersection(_TIME_KINDS))
         self._ttab: torch.Tensor | None = None  # see _time_table
@@ -336,6 +382,10 @@ class CompiledGraph:
                 self.num_state[f"{vi}.scan_max"] = self._scalar(0.0)
             elif st.kind == G.BANDPASS:
                 self.num_state[f"{vi}.bp"] = BandPassState.init(dev)
+            elif st.kind == G.PLUGINFX:
+                self.num_state[f"{vi}.fx"] = fx.EFFECTS[st.fx_kind].init_state(
+                    sr, dict(st.fx_static), dev
+                )
             elif st.kind in _CARRY_CLASSES:
                 self.carries[vi] = _CARRY_CLASSES[st.kind]()
 
@@ -350,6 +400,8 @@ class CompiledGraph:
         self._member_pool_cache: dict[tuple[int, int], tuple] = {}
         # per-consumer sample_len/base vectors (see _fused_member_vecs)
         self._fused_vecs: dict[int, tuple] = {}
+        # (PluginHost.version, packed traced effect params; see _pack_fx)
+        self._fx_cache: tuple | None = None
 
     def _scalar(self, v: float) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.float32, device=self.device)
@@ -403,9 +455,9 @@ class CompiledGraph:
         self, num_state: dict[str, np.ndarray], carries: dict, t: int
     ) -> None:
         """Take over a render mid-timeline from the JAX reference: its
-        CompiledGraph's `num_state` (arrays, and a BandPassState per
-        band-pass), its carries and its time. Both graphs must come from
-        the same project."""
+        CompiledGraph's `num_state` (arrays, a BandPassState per band-pass
+        and an effect state pytree per effect), its carries and its time.
+        Both graphs must come from the same project."""
         if set(num_state) != set(self.num_state):
             raise ValueError(
                 f"num_state keys {sorted(num_state)} do not match this "
@@ -425,6 +477,9 @@ class CompiledGraph:
                     first=torch.tensor(bool(np.asarray(v.first)),
                                        device=dev),
                 )
+            elif k.endswith(".fx"):
+                self.num_state[k] = _tree_to_device(v, self.num_state[k], dev,
+                                                    k)
             else:
                 self.num_state[k] = torch.tensor(np.asarray(v, np.float32),
                                                  device=dev)
@@ -437,6 +492,36 @@ class CompiledGraph:
             self.carries[vi] = port
         self.t = t
         self.graph.t = t
+
+    def _pack_fx(self) -> dict[str, dict[str, torch.Tensor]]:
+        """Traced effect parameters, uploaded as one f32 vector, as the
+        per-vertex dicts of 0-d views of it that the effects take. Names
+        are sorted; static params (EffectDef.static_params) are left out,
+        they were bound into _VertexStatic.fx_static at build. Memoized on
+        PluginHost.version: the layout is fixed per graph and the values
+        change only through the host's mutators (reference
+        compile.py:1113-1142)."""
+        ver = self.plugin_host.version
+        if self._fx_cache is not None and self._fx_cache[0] == ver:
+            return self._fx_cache[1]
+        keys: list[tuple[str, str]] = []
+        vals: list[float] = []
+        for vi in self.order:
+            st = self.statics[vi]
+            if st.kind != G.PLUGINFX:
+                continue
+            pv = self.plugin_host.param_values(st.fx_plugin_index)
+            skip = fx.EFFECTS[st.fx_kind].static_params
+            for name in sorted(pv):
+                if name not in skip:
+                    keys.append((str(vi), name))
+                    vals.append(float(pv[name]))
+        vec = torch.tensor(vals, dtype=torch.float32, device=self.device)
+        params: dict[str, dict[str, torch.Tensor]] = {}
+        for (vkey, name), v in zip(keys, vec):
+            params.setdefault(vkey, {})[name] = v
+        self._fx_cache = (ver, params)
+        return params
 
     # -- normalization controls (reference graph.rs:195-220) ---------------
     def _normalize_vis(self):
@@ -823,6 +908,7 @@ class CompiledGraph:
         T = nb * bl
         bufs: dict[int, torch.Tensor] = {}
         ns = self.num_state
+        fx_params = self._pack_fx() if self._has_fx else {}
         if self._uses_frames:
             frames = torch.arange(t0, t0 + T, dtype=torch.int64,
                                   device=self.device)
@@ -894,10 +980,18 @@ class CompiledGraph:
                     x, bakes[key], frames, st.confs[0], st.use_off,
                     st.use_max, self._wets[vi], ib,
                 )
-            else:  # G.BANDPASS (kinds are checked at build)
+            elif kind == G.BANDPASS:
                 out, ns[f"{vi}.bp"] = filters.band_pass_timeline(
                     x, ns[f"{vi}.bp"], st.lgamma, st.hgamma, st.pass_mode,
                     self._wets[vi],
                 )
+            elif st.fx_skip:  # G.PLUGINFX with wet < 1e-4
+                out = x  # the input passes, the state stays as it was
+            else:  # G.PLUGINFX
+                y, ns[f"{vi}.fx"] = fx.EFFECTS[st.fx_kind].process(
+                    x, ns[f"{vi}.fx"], fx_params.get(key, {}), self.sr,
+                    dict(st.fx_static),
+                )
+                out = x + self._wets[vi] * (y - x)
             bufs[vi] = mix.post(out, self._angles[vi], self._gains[vi])
         return bufs[self.output]

@@ -3,8 +3,9 @@
 Each `csrc/*.cu` file exports a plain `extern "C"` launcher. At first use
 it is compiled with nvcc for Hopper (`sm_90a`) into a shared library under
 `termdaw_tpu_torch/build/`, named by a hash of its source, and loaded with
-ctypes; `build_all` compiles several sources in parallel. Nothing is built when the module is imported, so the CPU tests
-can import everything without nvcc.
+ctypes; `build_all` compiles several sources in parallel. Nothing is
+built when the module is imported, so the CPU tests can import
+everything without nvcc.
 
 nvcc is looked up in `$CUDA_HOME/bin`, then `/usr/local/cuda/bin`, then
 `PATH`.
@@ -28,6 +29,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+# every csrc/<name>.cu of the port
+KERNELS = ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -121,6 +125,18 @@ def affine_scan_lib() -> ctypes.CDLL:
                  [vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp])
 
 
+def max_decay_scan_lib() -> ctypes.CDLL:
+    vp = ctypes.c_void_p
+    return _load("max_decay_scan", "max_decay_scan_launch",
+                 [vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp])
+
+
+def complex_scan_lib() -> ctypes.CDLL:
+    vp = ctypes.c_void_p
+    return _load("complex_scan", "complex_scan_launch",
+                 [vp] * 8 + [ctypes.c_longlong, ctypes.c_int, vp])
+
+
 def voice_mix_launch(
     sample_padded: torch.Tensor, begins: torch.Tensor, amp_l: torch.Tensor,
     amp_r: torch.Tensor, out: torch.Tensor, nb: int, bl: int,
@@ -153,3 +169,39 @@ def affine_scan_launch(b: torch.Tensor, a: torch.Tensor, y0: torch.Tensor,
         )
     if rc != 0:
         raise RuntimeError(f"affine_scan kernel launch failed: CUDA error {rc}")
+
+
+def max_decay_scan_launch(x: torch.Tensor, r: torch.Tensor, y0: torch.Tensor,
+                          y: torch.Tensor) -> None:
+    """Launch csrc/max_decay_scan.cu on the tensors' device and current
+    stream. The caller (ops/scan.max_decay_scan) has checked devices,
+    dtypes, shapes and contiguity; raises if the launch is refused."""
+    lib = max_decay_scan_lib()
+    with torch.cuda.device(y.device):
+        rc = lib.max_decay_scan_launch(
+            x.data_ptr(), r.data_ptr(), y0.data_ptr(), y.data_ptr(),
+            x.shape[0], x.shape[1], torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"max_decay_scan kernel launch failed: CUDA error {rc}")
+
+
+def complex_scan_launch(f_r: torch.Tensor, f_i: torch.Tensor,
+                        p_r: torch.Tensor, p_i: torch.Tensor,
+                        s_r: torch.Tensor, s_i: torch.Tensor,
+                        u_r: torch.Tensor, u_i: torch.Tensor) -> None:
+    """Launch csrc/complex_scan.cu on the tensors' device and current
+    stream. The caller (ops/scan.complex_affine_scan) has checked devices,
+    dtypes, shapes and contiguity; raises if the launch is refused."""
+    lib = complex_scan_lib()
+    with torch.cuda.device(u_r.device):
+        rc = lib.complex_scan_launch(
+            f_r.data_ptr(), f_i.data_ptr(), p_r.data_ptr(), p_i.data_ptr(),
+            s_r.data_ptr(), s_i.data_ptr(), u_r.data_ptr(), u_i.data_ptr(),
+            f_r.shape[0], f_r.shape[1],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"complex_scan kernel launch failed: CUDA error {rc}")

@@ -1,6 +1,6 @@
 """Generated projects of the shapes the port covers.
 
-Four bench configurations of the render path (bench.py), written with
+Five bench configurations of the render path (bench.py), written with
 numpy and the reference's JAX-free file writers (fileio.wav, fileio.midi,
 fileio.wavetable) so the same project can be loaded by either package:
 
@@ -10,6 +10,9 @@ fileio.wavetable) so the same project can be loaded by either package:
   mode) ducking a looping pad on the kick hits -> Normalize, 16-bit;
 * c3 (bench.py:437-474): a 3-oscillator Synth bass and a wavetable
   SampSyn chord track through a BandPass -> Normalize, 16-bit;
+* c4 (bench.py:477-482, termdaw_tpu/utils/fixtures.py:36-161 with
+  include_fx=True): every vertex kind but Sum, SampleLoop and DebugSine, with
+  the reverb -> compressor -> eq3 -> delay effect chain on the synth bus;
 * c5 (bench.py:485-528): n streamed SampleMulti tracks over one hit
   sample recorded at 96 kHz (resampled on import) -> Normalize, 32-bit.
 
@@ -141,6 +144,99 @@ add_normalize("sum", 1.0, 0.0);
 connect("bass", "band");
 connect("comp", "band");
 connect("band", "sum");
+set_output("sum");
+""")
+    _toml(d, bl, sr)
+
+
+def write_c4_project(d: Path, length_sec: float, sr: int, bl: int,
+                     render_sr: int = 44100, bd: int = 16) -> None:
+    """Config 4: the reference's full demo project with effects
+    (build_demo_project(include_fx=True)): SampleLerp kick and hat, a
+    SampleMulti snare, a Synth bass and a SampSyn chord track ducked by an
+    Adsr on the kick, a BandPass, then reverb -> compressor -> eq3 ->
+    delay (effect params set by LV2-style names) into a Normalize."""
+    d = Path(d)
+    d.mkdir(parents=True, exist_ok=True)
+    drum(d / "kick.wav", sr, 0.18, 55.0, 28.0)
+    drum(d / "snare.wav", sr, 0.15, 190.0, 35.0, noise=0.6, seed=1)
+    drum(d / "hat.wav", sr, 0.06, 6000.0, 80.0, noise=1.0, seed=2)
+    beats, snares, hats, bass, chords = [], [], [], [], []
+    for bar in range(max(1, int(length_sec / 2.0))):
+        t0 = bar * 2.0
+        beats += [(t0, 0.1, 36, 110), (t0 + 1.0, 0.1, 36, 100)]
+        snares += [(t0 + 0.5, 0.1, 38, 100), (t0 + 1.5, 0.1, 38, 105)]
+        hats += [(t0 + i * 0.25, 0.05, 42, 70 + (i % 2) * 20)
+                 for i in range(8)]
+        root = [45, 41, 43, 48][bar % 4]
+        bass += [(t0, 0.9, root - 12, 100), (t0 + 1.0, 0.9, root - 5, 90)]
+        chords += [(t0, 1.8, root + 12, 70), (t0, 1.8, root + 16, 60),
+                   (t0, 1.8, root + 19, 65)]
+    for name, ev in (("kick", beats), ("snare", snares), ("hat", hats),
+                     ("bass", bass), ("chords", chords)):
+        write_midi(d / f"{name}.mid", ev, bpm=120)
+    write_wavetable(d / "table.wt", WaveTable.default())
+    (d / "project.lua").write_text(f"""
+set_length({length_sec});
+set_render_samplerate({render_sr});
+set_render_bitdepth({bd});
+set_output_file("{d}/outp.wav");
+
+load_sample("kick", "{d}/kick.wav", "");
+load_sample("snare", "{d}/snare.wav", "");
+load_sample("hat", "{d}/hat.wav", "");
+load_midi_floww("kick", "{d}/kick.mid");
+load_midi_floww("snare", "{d}/snare.mid");
+load_midi_floww("hat", "{d}/hat.mid");
+load_midi_floww("bass", "{d}/bass.mid");
+load_midi_floww("chords", "{d}/chords.mid");
+load_resource("tbl", "{d}/table.wt");
+
+load_lv2("verb", "native:reverb");
+load_lv2("comp", "native:compressor");
+load_lv2("eq", "native:eq3");
+load_lv2("del", "native:delay");
+parameter("comp", "Attack", 30.0);
+parameter("comp", "Ratio", 3.0);
+parameter("eq", "low freq", 180.0);
+parameter("eq", "low gain", -3.0);
+parameter("eq", "high gain", 2.0);
+parameter("del", "time", 120.0);
+parameter("del", "feedback", 0.35);
+
+add_sample_lerp("kick", 1.2, 0.0, "kick", "kick", -1, 40);
+add_sample_multi("snare", 0.9, 0.0, "snare", "snare", -1);
+add_sample_lerp("hat", 0.4, 40.0, "hat", "hat", -1, 40);
+
+hit_adsr = {{ 0.001, 0.02, 0.0, 0.0, 0.0, 0.0 }};
+note_adsr = {{ 0.01, 0.1, 0.8, 5.0, 0.2, 0.5 }};
+add_synth("bass", 0.5, 0.0, "bass", 0.4, 0.3, hit_adsr,
+          1.0, 0.8, note_adsr, 0.0, {{}});
+add_sampsyn("chords", 0.35, -20.0, "chords", note_adsr, "tbl");
+
+add_adsr("duck", 1.0, 0.0, 1.0, "kick", false, false, -1,
+         {{ 1.0, 0.01, 0.4, 0.25, 0.4, 0.0, 0.0, 0.05, 1.0 }});
+add_bandpass("band", 1.0, 0.0, 1.0, 8000, 30, true);
+
+add_lv2fx("fxverb", 1.0, 0.0, 0.4, "verb");
+add_lv2fx("fxcomp", 1.0, 0.0, 1.0, "comp");
+add_lv2fx("fxeq", 1.0, 0.0, 1.0, "eq");
+add_lv2fx("fxdel", 1.0, 0.0, 0.3, "del");
+
+add_normalize("sum", 1.0, 0.0);
+
+connect("kick", "sum");
+connect("snare", "sum");
+connect("hat", "sum");
+connect("bass", "duck");
+connect("chords", "duck");
+connect("duck", "band");
+connect("band", "fxverb");
+connect("fxverb", "fxcomp");
+connect("fxcomp", "fxeq");
+connect("fxeq", "fxdel");
+connect("fxdel", "sum");
+
 set_output("sum");
 """)
     _toml(d, bl, sr)

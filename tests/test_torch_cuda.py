@@ -1,7 +1,7 @@
-"""The port on a CUDA card: the voice-mix and affine-scan kernels against
-their plain versions, small renders and playback on the card against the
-port's CPU path. This file imports no JAX, so it also runs where only the
-port is installed:
+"""The port on a CUDA card: the voice-mix, affine-scan, max-decay and
+complex-scan kernels against their plain versions, the effects, small
+renders and playback on the card against the port's CPU path. This file
+imports no JAX, so it also runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
@@ -14,10 +14,10 @@ import torch
 from termdaw_tpu.engine.sink import Sink
 
 from termdaw_tpu_torch.engine.player import Player
-from termdaw_tpu_torch.ops import scan, voices
+from termdaw_tpu_torch.ops import filters, fx, scan, voices
 from termdaw_tpu_torch.utils.fixtures import (
     load_state, read_wav_ints, write_c2_project, write_c3_project,
-    write_c5_project,
+    write_c4_project, write_c5_project,
 )
 
 pytestmark = pytest.mark.cuda
@@ -148,3 +148,182 @@ def test_player_on_card(cuda, tmp_path):
                                atol=1e-5)
     assert player.tick() >= 1
     assert all(np.isfinite(c).all() for c in sink.chunks[1:])
+
+
+# T = 1, T below the 512 threads of a CTA, a ragged T over many chunks,
+# one c4 window (375 blocks of 1024 frames) with one frame more
+EDGE_T = [1, 7, 511, 1025, 100003, 384001]
+
+
+def _max_decay64(x, r, y0):
+    y = np.empty(x.shape, np.float64)
+    prev = y0.astype(np.float64)
+    for t in range(x.shape[0]):
+        prev = np.maximum(x[t], r * prev)
+        y[t] = prev
+    return y
+
+
+def _check_close(got, want, y64, what):
+    """Both forms within 1e-4 of float64 and within 1e-5 of each other,
+    relative to max |y| (the rules of chip_smoke's scan phases)."""
+    scale = max(1.0, float(np.abs(y64).max()))
+    np.testing.assert_allclose(got, y64, rtol=0, atol=1e-4 * scale,
+                               err_msg=f"{what}: kernel vs float64")
+    np.testing.assert_allclose(want, y64, rtol=0, atol=1e-4 * scale,
+                               err_msg=f"{what}: plain vs float64")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale,
+                               err_msg=f"{what}: kernel vs plain")
+
+
+@pytest.mark.parametrize("T,C", [(T, 1) for T in EDGE_T] + [(1025, 4),
+                                                             (67, 1785)])
+def test_max_decay_kernel_matches_plain_on_card(cuda, T, C):
+    rng = np.random.default_rng(T + 3 * C)
+    x = np.abs(rng.normal(size=(T, C))).astype(np.float32)
+    x[::977] *= 5.0  # peaks
+    r = rng.uniform(0.9, 0.99999, C).astype(np.float32)
+    r[0] = np.exp(np.float32(-1.0) / np.float32(250 * 0.001 * 48000))
+    y0 = rng.uniform(0, 3, C).astype(np.float32)
+    args = [torch.from_numpy(v).to(cuda) for v in (x, r, y0)]
+    n0 = scan.max_decay_launches
+    got = scan.max_decay_scan(*args)
+    torch.cuda.synchronize()
+    assert scan.max_decay_launches == n0 + 1
+    want = scan.max_decay_scan_plain(*args)
+    _check_close(got.cpu().numpy(), want.cpu().numpy(),
+                 _max_decay64(x, r.astype(np.float64), y0), "max_decay")
+
+
+def test_max_decay_kernel_propagates_nan_on_card(cuda):
+    """CUDA's fmaxf drops NaN; the kernel's max must not."""
+    x = np.ones((4000, 2), np.float32)
+    x[1234, 0] = np.nan
+    r = np.full(2, 0.999, np.float32)
+    y0 = np.full(2, -3.0e38, np.float32)
+    got = scan.max_decay_scan(*(torch.from_numpy(v).to(cuda)
+                                for v in (x, r, y0))).cpu().numpy()
+    assert np.isnan(got[1234:, 0]).all() and not np.isnan(got[:1234]).any()
+    assert not np.isnan(got[:, 1]).any()
+
+
+def _complex64(f, p, s):
+    u = np.empty(f.shape, np.complex128)
+    prev = s.astype(np.complex128)
+    for t in range(f.shape[0]):
+        prev = p * prev + f[t]
+        u[t] = prev
+    return u
+
+
+def _eq_poles(sr=48000):
+    """The conjugate poles of the c4 crossovers (180 Hz and 4 kHz)."""
+    out = []
+    for f in (180.0, 4000.0):
+        _, _, _, a1, a2 = filters.biquad_coefs("lowpass", f, sr)
+        out.append((-a1 + 1j * np.sqrt(4 * a2 - a1 * a1)) / 2)
+    return out
+
+
+@pytest.mark.parametrize("T,C", [(T, 4) for T in EDGE_T] + [(1025, 1),
+                                                             (300, 600)])
+def test_complex_scan_kernel_matches_plain_on_card(cuda, T, C):
+    rng = np.random.default_rng(7 * T + C)
+    p180, p4k = _eq_poles()
+    poles = np.resize(np.asarray([p180, np.conj(p4k), 0.95, -0.6 + 0.5j]),
+                      C).astype(np.complex64)
+    f = (rng.normal(size=(T, C)) + 1j * rng.normal(size=(T, C))).astype(
+        np.complex64)
+    s = (rng.normal(size=C) + 1j * rng.normal(size=C)).astype(np.complex64)
+    host = (f.real, f.imag, poles.real, poles.imag, s.real, s.imag)
+    args = [torch.from_numpy(np.ascontiguousarray(v)).to(cuda) for v in host]
+    n0 = scan.complex_launches
+    gr, gi = scan.complex_affine_scan(*args)
+    torch.cuda.synchronize()
+    assert scan.complex_launches == n0 + 1
+    wr, wi = scan.complex_affine_scan_plain(*args)
+    u64 = _complex64(f.astype(np.complex128), poles.astype(np.complex128),
+                     s)
+    _check_close(gr.cpu().numpy(), wr.cpu().numpy(), u64.real, "real")
+    _check_close(gi.cpu().numpy(), wi.cpu().numpy(), u64.imag, "imag")
+
+
+@pytest.mark.parametrize("op", ["affine", "max_decay", "complex"])
+def test_scan_wrappers_refuse_mixes_and_count_only_on_card(cuda, op):
+    fn = {"affine": scan.affine_scan, "max_decay": scan.max_decay_scan,
+          "complex": scan.complex_affine_scan}[op]
+    seqs = 2 if op == "complex" else 1
+    lanes = 4 if op == "complex" else 2
+
+    def args(dev, dtype=torch.float32, bad=None):
+        out = [torch.ones(50, 3, dtype=dtype, device=dev)
+               for _ in range(seqs)]
+        out += [torch.full((3,), 0.5, dtype=dtype, device=dev)
+                for _ in range(lanes)]
+        if bad is not None:
+            out[bad] = out[bad].to("cpu" if dev.type == "cuda" else cuda)
+        return out
+
+    counters = ("launches", "max_decay_launches", "complex_launches")
+    before = [getattr(scan, c) for c in counters]
+    fn(*args(torch.device("cpu")))
+    assert [getattr(scan, c) for c in counters] == before
+    for bad in (0, seqs):  # a sequence, then a per-lane value elsewhere
+        with pytest.raises(ValueError, match="on cpu"):
+            fn(*args(cuda, bad=bad))
+    with pytest.raises(TypeError, match="float32"):
+        fn(*args(cuda, dtype=torch.float64))
+    noncontig = args(cuda)
+    noncontig[0] = torch.ones(3, 50, device=cuda).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(*noncontig)
+    assert [getattr(scan, c) for c in counters] == before
+    fn(*args(cuda))
+    after = [getattr(scan, c) for c in counters]
+    assert sum(a - b for a, b in zip(after, before)) == 1
+
+
+@pytest.mark.parametrize("kind", sorted(fx.EFFECTS))
+def test_effect_on_card_matches_cpu(cuda, kind):
+    """Each effect over two windows at 48 kHz on the card against the CPU
+    path (the kernels against the plain scans), within 1e-4 of max |y|;
+    the delayed reads of chorus and flanger also within one f32 step of
+    the read position times the input's slope (tests/test_torch_fx.py)."""
+    sr = 48000
+    eff = fx.EFFECTS[kind]
+    static = fx.static_values(eff, eff.defaults)
+    rng = np.random.default_rng(1)
+    t = np.arange(30000) / sr
+    x = (0.5 * np.sin(2 * np.pi * 110 * t)[:, None]
+         + 0.05 * rng.normal(size=(30000, 2))).astype(np.float32)
+    states = {d: eff.init_state(sr, static, d) for d in ("cpu", cuda)}
+    for lo, hi in ((0, 12000), (12000, 30000)):
+        outs = {}
+        for d in states:
+            p = {k: torch.tensor(v, dtype=torch.float32, device=d)
+                 for k, v in eff.defaults.items()
+                 if k not in eff.static_params}
+            y, states[d] = eff.process(torch.from_numpy(x[lo:hi]).to(d),
+                                       states[d], p, sr, static)
+            outs[d] = y.cpu().numpy()
+        atol = 1e-4 * max(1.0, float(np.abs(outs["cpu"]).max()))
+        if kind in ("chorus", "flanger"):
+            M = states["cpu"]["tail"].shape[0]
+            atol += float(np.spacing(np.float32(M + hi - lo))) * float(
+                np.abs(np.diff(x, axis=0)).max())
+        np.testing.assert_allclose(outs[cuda], outs["cpu"], rtol=0,
+                                   atol=atol)
+
+
+def test_small_c4_render_on_card_matches_cpu(cuda, tmp_path):
+    write_c4_project(tmp_path, 2.0, 8000, 256, render_sr=8000)
+    scan.launches = scan.max_decay_launches = scan.complex_launches = 0
+    voices.launches = 0
+    load_state(tmp_path, cuda).render()
+    assert min(voices.launches, scan.launches, scan.max_decay_launches,
+               scan.complex_launches) > 0
+    got, _ = read_wav_ints(tmp_path / "outp.wav")
+    load_state(tmp_path, torch.device("cpu")).render()
+    want, _ = read_wav_ints(tmp_path / "outp.wav")
+    assert np.abs(got).max() > 16000
+    assert np.abs(got - want).max() <= 1

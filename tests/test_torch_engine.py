@@ -25,7 +25,7 @@ from termdaw_tpu_torch.graph import bake as B
 from termdaw_tpu_torch.ops import voices
 from termdaw_tpu_torch.utils.fixtures import (
     load_state, read_wav_ints, write_c1_project, write_c2_project,
-    write_c3_project, write_c5_project,
+    write_c3_project, write_c4_project, write_c5_project,
 )
 
 from .conftest import scrubbed_env
@@ -40,6 +40,9 @@ C5 = dict(length_sec=2.0, sr=8000, bl=256, n_tracks=8, hit_sr=16000, bd=16)
 C1 = dict(length_sec=2.0, sr=8000, bl=256, render_sr=4000, bd=16)
 # small c2 (SampleLerp, Adsr) and c3 (Synth, SampSyn, BandPass)
 SMALL = dict(length_sec=2.0, sr=8000, bl=256)
+# small c4 (every kind + reverb -> compressor -> eq3 -> delay), rendered
+# at the project rate
+C4 = dict(SMALL, render_sr=8000)
 WRITERS = {"c2": write_c2_project, "c3": write_c3_project}
 
 
@@ -211,7 +214,7 @@ import sys
 import torch
 from termdaw_tpu_torch.utils.fixtures import (
     load_state, write_c1_project, write_c2_project, write_c3_project,
-    write_c5_project)
+    write_c4_project, write_c5_project)
 packets = write_c5_project({str(tmp_path / 'c5')!r}, 1.0, 8000, 256,
                            n_tracks=3, hit_sr=16000, bd=16)
 load_state({str(tmp_path / 'c5')!r}, torch.device('cpu'), packets).render()
@@ -221,6 +224,8 @@ write_c2_project({str(tmp_path / 'c2')!r}, 1.0, 8000, 256)
 load_state({str(tmp_path / 'c2')!r}, torch.device('cpu')).render()
 write_c3_project({str(tmp_path / 'c3')!r}, 2.0, 8000, 256)
 load_state({str(tmp_path / 'c3')!r}, torch.device('cpu')).render()
+write_c4_project({str(tmp_path / 'c4')!r}, 1.0, 8000, 256, render_sr=8000)
+load_state({str(tmp_path / 'c4')!r}, torch.device('cpu')).render()
 assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)
 print('JAXFREE')
 """
@@ -230,7 +235,7 @@ print('JAXFREE')
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "JAXFREE" in proc.stdout
-    for cfg in ("c1", "c2", "c3"):
+    for cfg in ("c1", "c2", "c3", "c4"):
         assert (tmp_path / cfg / "outp.wav").exists()
     assert (tmp_path / "c5" / "mix.wav").exists()
 
@@ -259,30 +264,131 @@ def test_cli_cuda_without_a_card_exits_nonzero(tmp_path, capsys):
     assert "torch.cuda.is_available() is false" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("decl", [
-    'load_lv2("dly", "native:delay");\n'
-    'add_lv2fx("fx", 1.0, 0.0, 0.5, "dly");',
-    'load_lv2("verb", "native:reverb");\n'
-    'add_lv2fx("fx", 1.0, 0.0, 0.5, "verb");',
-])
-def test_unported_vertex_aborts_the_refresh(tmp_path, capsys, decl):
-    (tmp_path / "project.toml").write_text(
+def _fx_project(d: Path, decl: str) -> None:
+    """A synth through one effect vertex "fx" into a Sum, 1 s at 8 kHz."""
+    (d / "project.toml").write_text(
         '[settings]\nmain = "project.lua"\nbuffer_length = 256\n'
         "project_samplerate = 8000\n"
     )
-    (tmp_path / "project.lua").write_text(f"""
+    (d / "project.lua").write_text(f"""
 set_length(1.0);
 declare_floww("f", {{ {{0.1, 60, 0.9}}, {{0.5, 60, 0.0}} }});
-add_synth("syn", 1.0, 0.0, "f", 0.4, 0.3, {{}}, 0.0, 0.0, {{}}, 0.0, {{}});
+add_synth("syn", 1.0, 0.0, "f", 0.4, 0.3,
+          {{ 0.01, 0.1, 0.8, 5.0, 0.2, 0.5 }}, 0.0, 0.0, {{}}, 0.0, {{}});
 {decl}
 add_sum("out", 1.0, 0.0);
 connect("syn", "fx");
 connect("fx", "out");
 set_output("out");
 """)
+
+
+@pytest.mark.parametrize("decl", [
+    'load_lv2("dly", "native:delay");\n'
+    'add_lv2fx("fx", 1.0, 0.0, 0.5, "dly");',
+    'load_lv2("verb", "native:reverb");\n'
+    'add_lv2fx("fx", 1.0, 0.0, 0.5, "verb");',
+])
+def test_unported_vertex_aborts_the_refresh(tmp_path, monkeypatch, decl):
+    """The effect vertices that aborted the refresh before the effects
+    were ported (a delay and a reverb) now load, and the whole song
+    matches the reference within 1e-5."""
+    _fx_project(tmp_path, decl)
+    ref = _ref_state(tmp_path, monkeypatch)
+    port = load_state(tmp_path, CPU)
+    fxv = port.compiled.graph.name_map["fx"]
+    assert set(port.compiled.num_state) == set(ref.compiled.num_state)
+    assert f"{fxv}.fx" in port.compiled.num_state
+    nb = port.cs
+    want = _window(ref, nb)
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(_window(port, nb), want, rtol=0, atol=1e-5)
+
+
+def test_exact_biquad_lane_aborts_an_eq3_refresh(tmp_path, monkeypatch,
+                                                 capsys):
+    """TERMDAW_EXACT_BIQUAD=1 asks for the reference's sequential biquad
+    lane, which the port does not have: the refresh of a graph with an
+    eq3 aborts instead of running the parallel lane; without the flag
+    the same project loads."""
+    _fx_project(tmp_path, 'load_lv2("eq", "native:eq3");\n'
+                          'add_lv2fx("fx", 1.0, 0.0, 1.0, "eq");')
+    monkeypatch.setenv("TERMDAW_EXACT_BIQUAD", "1")
     with pytest.raises(RuntimeError, match="did not load"):
         load_state(tmp_path, CPU)
-    assert "not yet ported" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "exact biquad lane" in out and "not yet ported" in out
+    monkeypatch.setenv("TERMDAW_EXACT_BIQUAD", "0")
+    assert load_state(tmp_path, CPU).loaded
+
+
+def test_c4_small_matches_reference(tmp_path, monkeypatch):
+    """The whole c4 song as one window within 1e-4 (eq3's bound), then
+    both renders to 16-bit WAVs within one count."""
+    write_c4_project(tmp_path, **C4)
+    ref = _ref_state(tmp_path, monkeypatch)
+    port = load_state(tmp_path, CPU)
+    kinds = {port.compiled.statics[vi].fx_kind
+             for vi in port.compiled.order}
+    assert kinds == {"", "reverb", "compressor", "eq3", "delay"}
+    comp = port.host.param_values(port.host.get_index("comp"))
+    assert comp["attack"] == 30.0 and comp["ratio"] == 3.0
+    nb = port.cs
+    want = _window(ref, nb)
+    got = _window(port, nb)
+    assert got.shape == want.shape == (nb * C4["bl"], 2)
+    assert np.abs(want).max() > 0.5
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    ref.compiled.set_time(0)
+    port.compiled.set_time(0)
+    want_i, rate = _render_ints(ref, tmp_path / "outp.wav")
+    got_i, rate_p = _render_ints(port, tmp_path / "outp.wav")
+    assert rate == rate_p == C4["sr"] and got_i.shape == want_i.shape
+    assert np.abs(got_i - want_i).max() <= 1
+
+
+def test_load_reference_state_continues_c4(tmp_path, monkeypatch):
+    """The reference renders c4 for a window and hands over every effect
+    state (delay tails, scan carries, biquad states) with the rest."""
+    write_c4_project(tmp_path, **C4)
+    ref = _ref_state(tmp_path, monkeypatch)
+    port = load_state(tmp_path, CPU)
+    nb = 32  # half the song: the reverb's lines are ringing
+    _window(ref, nb)
+    rcg = ref.compiled
+    port.compiled.load_reference_state(rcg.num_state, rcg.carries,
+                                       rcg.get_time())
+    pcg = port.compiled
+    verb = pcg.graph.name_map["fxverb"]
+    tails = pcg.num_state[f"{verb}.fx"]["comb_tails"]
+    for got, want in zip(tails, rcg.num_state[f"{verb}.fx"]["comb_tails"]):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert max(float(t.abs().max()) for t in tails) > 1e-3
+    np.testing.assert_allclose(_window(port, nb), _window(ref, nb), rtol=0,
+                               atol=1e-4)
+
+
+def test_refresh_with_a_new_delay_time_rebuilds_the_line(tmp_path):
+    """`time` is a static param: a refresh that changes it binds the new
+    comb length (the tail), as the reference does."""
+    from termdaw_tpu.ops import fx as rfx
+
+    write_c4_project(tmp_path, **C4)
+    st = load_state(tmp_path, CPU)
+    dly = st.compiled.graph.name_map["fxdel"]
+    assert st.compiled.num_state[f"{dly}.fx"]["tail"].shape == (960, 2)
+    lua = tmp_path / "project.lua"
+    lua.write_text(lua.read_text().replace(
+        'parameter("del", "time", 120.0);', 'parameter("del", "time", 250);'))
+    st.refresh()
+    assert st.loaded
+    cg = st.compiled
+    dly = cg.graph.name_map["fxdel"]
+    assert cg.statics[dly].fx_static == (("time", 250.0),)
+    D = rfx._delay_samples(8000, {"time": 250.0})
+    assert cg.num_state[f"{dly}.fx"]["tail"].shape == (D, 2) == (2000, 2)
+    assert set(cg._pack_fx()[str(dly)]) == {"feedback"}
+    assert np.isfinite(_window(st, 8)).all()
 
 
 def test_cuda_counter_untouched_by_cpu_render(tmp_path):
