@@ -17,6 +17,9 @@ the final line:
    shape (one window of 375 blocks x 1024 frames, 4 lanes, the gammas of
    8000 Hz and 30 Hz at 48 kHz, a seeded input): both within 1e-4 of a
    float64 recurrence and within 1e-5 of each other, relative to max |y|;
+   and a slow pole (a = 0.9999, same shape), where the kernel must be
+   within 1e-4 of float64 relative to max |y| (the plain version's
+   distance is printed, not gated);
 5. c5 end to end (64 streamed SampleMulti tracks, 48 kHz / 1024, 40 s,
    32-bit, a 96 kHz hit resampled on import): refresh + render on cuda,
    the kernel launch counts of that run, and the WAV against the port's
@@ -36,17 +39,22 @@ the final line:
    48 kHz), complex-scan at one eq3 stage (375 x 1024 frames, 4 lanes,
    the poles of the 180 Hz and 4 kHz crossovers), affine-scan at the
    feedback lines (the longest reverb comb, D = 1785, 1 lane; the delay,
-   D = 5760, 2 lanes);
+   D = 5760, 2 lanes); and complex-scan at a slow pole (|p| = 0.9999, the
+   conjugate pair at 20 Hz), checked as phase 4's slow pole;
 10. c4 end to end (the reference's demo project with the reverb ->
    compressor -> eq3 -> delay chain, 48 kHz / 1024, 40 s -> 44.1 kHz
    16-bit): refresh + render on cuda, which must launch all four kernels,
    and the WAV against the port's CPU render, as in phase 5;
 11. timings after one warm-up: render_device wall time (synchronized),
-   the median of 5, for c5, c1, c2, c3 and c4, and each kernel against
-   its plain version (CUDA events);
+   the median of 5, for c5, c1, c2, c3 and c4; each kernel against its
+   plain version (CUDA events per wrapper call); and each kernel's device
+   time per call (torch.profiler, all the kernels a call launches) beside
+   its bound (bytes read and written once at 3.35 TB/s, or f32 operations
+   at 67 TFLOP/s) and the share of the bound it reaches, the scans at
+   every shape c3 and c4 run them at;
 12. torch.profiler traces of two c4 renders: the first as it runs
-   (device time in all and in each kernel, device launches, device busy
-   share of the wall), the second with each effect fenced by
+   (device time in all and in each kernel, device kernel launches, device
+   busy share of the wall), the second with each effect fenced by
    synchronizes (the effects' device time).
 
 Then the card line, the kernels line, and as the last line
@@ -74,6 +82,9 @@ SCAN_T, SCAN_C = 375 * BL, 4                  # one c3 band-pass window
 SCAN_F64_RTOL, SCAN_PLAIN_RTOL = 1e-4, 1e-5   # relative to max |y|
 PLAYER_ATOL = 1e-5
 COMB_D, DELAY_D = 1785, 5760                  # c4's feedback lines at 48 kHz
+SLOW_POLE, SLOW_HZ = 0.9999, 20.0             # phases 4 and 9's slow poles
+# one H100 SXM, published peaks: HBM3 bytes/s, f32 flop/s
+PEAK_BYTES_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 
 
 def emit(phase: str, **fields) -> None:
@@ -151,6 +162,99 @@ def complex64(f: np.ndarray, p: np.ndarray, s: np.ndarray) -> np.ndarray:
         prev = p128 * prev + f[t]
         u[t] = prev
     return u
+
+
+def slow_pole_inputs(device: torch.device) -> dict:
+    """Slow poles at T = 384,000, 4 lanes, from a seeded input x (numpy
+    seed 3), states 0: the affine scan at a = 0.9999, and the complex scan
+    at |p| = 0.9999, the conjugate pair at 20 Hz on lanes [p, conj p, p,
+    conj p]. Every tile composes the same power of the pole, so this is
+    where the tiles' shared rounding error would compound. As (host
+    arrays, device tensors) per scan."""
+    x = np.random.default_rng(3).normal(size=(SCAN_T, SCAN_C))
+    x = x.astype(np.float32)
+    zero = np.zeros(SCAN_C, np.float32)
+    p = SLOW_POLE * np.exp(2j * np.pi * SLOW_HZ / SR)
+    p = np.asarray([p, np.conj(p)] * (SCAN_C // 2)).astype(np.complex64)
+    out = {"affine": (x, np.full(SCAN_C, SLOW_POLE, np.float32), zero),
+           "complex": (x, np.zeros_like(x), p.real.copy(), p.imag.copy(),
+                       zero, zero)}
+    return {k: (v, [torch.from_numpy(a).to(device) for a in v])
+            for k, v in out.items()}
+
+
+def slow_check(name, got, plain, y64) -> dict:
+    """The kernel within SCAN_F64_RTOL of float64 relative to max |y| (no
+    floor); the plain version's distance is reported, not gated. got,
+    plain and y64 are sequences of parts (re, im) of one output."""
+    scale = max(float(np.abs(y).max()) for y in y64)
+    err = max(float(np.abs(np.asarray(g) - y).max())
+              for g, y in zip(got, y64))
+    perr = max(float(np.abs(np.asarray(w) - y).max())
+               for w, y in zip(plain, y64))
+    check(all(bool(np.isfinite(np.asarray(g)).all()) for g in got),
+          f"{name} kernel output not finite")
+    check(err <= SCAN_F64_RTOL * scale,
+          f"{name} kernel vs float64 max |diff| {err} > {SCAN_F64_RTOL} * "
+          f"{scale}")
+    return {"max_abs_y": scale, "kernel_vs_f64": err,
+            "kernel_vs_f64_rel": err / scale, "plain_vs_f64": perr,
+            "plain_vs_f64_rel": perr / scale}
+
+
+def affine_shapes() -> dict:
+    """Every [T, C] the affine-scan kernel runs at in a c3 or c4 window
+    (375 blocks of 1024 frames at 48 kHz): the band-pass, the reverb's
+    input damping, the compressor's smoothing, each reverb comb (mono,
+    [rows, D]) and allpass (stereo, [rows, 2D]), the delay ([rows, 2D])."""
+    from termdaw_tpu_torch.ops import fx
+
+    combs, allp = fx._reverb_lines(SR)
+    shapes = {"band_pass": (SCAN_T, 4), "damping": (SCAN_T, 2),
+              "smoothing": (SCAN_T, 1)}
+    shapes.update({f"comb_{d}": (-(-SCAN_T // d), d) for d in combs})
+    shapes.update({f"allpass_{d}": (-(-SCAN_T // d), 2 * d) for d in allp})
+    shapes["delay"] = (-(-SCAN_T // DELAY_D), 2 * DELAY_D)
+    return shapes
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the bytes read once and
+    written once over HBM's rate, or the f32 operations over the peak
+    f32 rate, whichever is larger."""
+    tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+    return {"bound_ms": max(tb, tf) * 1e3,
+            "bound_by": "bytes" if tb >= tf else "operations"}
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of fn: the CUDA rows of a torch.profiler trace
+    of `reps` calls after a warm-up (all the kernels a call launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    total = sum(e.device_time_total for e in prof.events()
+                if e.device_type == cuda_t)
+    check(total > 0, "the profiler saw no device time")
+    return total / 1e3 / reps
+
+
+def timed(fn, plain, nbytes: float, flops: float) -> dict:
+    """A kernel's device ms per call beside its bound, the wrapper's
+    CUDA-event ms per call (host dispatch included when that is longer)
+    and the plain version's."""
+    ms = device_ms(fn)
+    b = bound(nbytes, flops)
+    return {"ms": ms, "call_ms": event_ms(fn, 50),
+            "plain_ms": event_ms(plain, 20), **b,
+            "bound_share": b["bound_ms"] / ms}
 
 
 def fx_scan_inputs(device: torch.device) -> dict:
@@ -284,14 +388,17 @@ def profile_render(st) -> dict:
     device_ms = ms(dev)
     check(device_ms > 0, "the profiler saw no device time")
     mine = {}
-    for k in ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan"):
-        ks = [e for e in dev if k + "_kernel" in e.name]
-        mine[k] = {"ms": ms(ks), "launches": len(ks)}
+    for k, name in (("voice_mix", "voice_mix_kernel"),
+                    ("affine_scan", "AffineScanOp"),
+                    ("max_decay_scan", "max_decay_scan_kernel"),
+                    ("complex_scan", "ComplexScanOp")):
+        ks = [e for e in dev if name in e.name]
+        mine[k] = {"ms": ms(ks), "device_kernels": len(ks)}
     _, fdev, ranges = profiled_render(st, fenced=True)
     fx_ms = {name: ms(e for e in fdev if any(
         lo <= e.time_range.start < hi for lo, hi in spans))
         for name, spans in ranges.items()}
-    eq3_complex = ms(e for e in fdev if "complex_scan_kernel" in e.name)
+    eq3_complex = ms(e for e in fdev if "ComplexScanOp" in e.name)
     return {"wall_ms": wall * 1e3, "device_ms": device_ms,
             "device_busy_share": device_ms / (wall * 1e3),
             "effects_device_ms": fx_ms,
@@ -376,7 +483,7 @@ def main() -> int:
     emit("environment", card=card, torch=torch.__version__,
          cuda=torch.version.cuda, device_count=count, kind=kind)
 
-    from termdaw_tpu.engine.sink import Sink
+    from termdaw_tpu_torch.engine.sink import Sink
 
     from termdaw_tpu_torch import kernels
     from termdaw_tpu_torch.engine.player import Player
@@ -432,9 +539,17 @@ def main() -> int:
     check(scan_err <= SCAN_PLAIN_RTOL * scale,
           f"scan kernel vs plain max |diff| {scan_err} > {SCAN_PLAIN_RTOL} "
           f"* {scale}")
+    slow = slow_pole_inputs(cuda)
+    host, dev = slow["affine"]
+    sgot_slow = scan.affine_scan(*dev)
+    torch.cuda.synchronize()
+    affine_slow = slow_check(
+        "affine slow pole", [sgot_slow.cpu()],
+        [scan.affine_scan_plain(*dev).cpu()], [recurrence64(*host)])
     emit("scan_kernel_vs_plain", T=SCAN_T, C=SCAN_C, max_abs_y=scale,
          kernel_vs_plain=scan_err, kernel_vs_f64=err64, plain_vs_f64=plain64,
-         rtol_f64=SCAN_F64_RTOL, rtol_plain=SCAN_PLAIN_RTOL)
+         rtol_f64=SCAN_F64_RTOL, rtol_plain=SCAN_PLAIN_RTOL,
+         slow_pole=dict(a=SLOW_POLE, **affine_slow))
 
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
         tmp = Path(tmp)
@@ -543,6 +658,18 @@ def main() -> int:
         cres = {part: scan_check(f"complex_{part}", g.cpu(), w.cpu(), y)
                 for part, g, w, y in (("re", cgot[0], cwant[0], c64.real),
                                       ("im", cgot[1], cwant[1], c64.imag))}
+        host, dev = slow["complex"]
+        sgot_slow = scan.complex_affine_scan(*dev)
+        torch.cuda.synchronize()
+        s64 = complex64(host[0] + 1j * host[1].astype(np.float64),
+                        host[2] + 1j * host[3].astype(np.float64),
+                        np.zeros(SCAN_C))
+        cres["slow_pole"] = dict(
+            abs_p=SLOW_POLE, hz=SLOW_HZ,
+            **slow_check("complex slow pole", [g.cpu() for g in sgot_slow],
+                         [w.cpu() for w in
+                          scan.complex_affine_scan_plain(*dev)],
+                         [s64.real, s64.imag]))
         fres = {}
         for name in ("comb", "delay"):
             host, dev = fxin[name]
@@ -583,74 +710,80 @@ def main() -> int:
         c2_s = wall_render(st23["c2"], 5)
         c3_s = wall_render(st23["c3"], 5)
         c4_s = wall_render(st4, 5)
-        kernel_ms = event_ms(
-            lambda: voices.voice_mix_stereo(*args, C5_NB, BL), 50)
-        plain_ms = event_ms(
-            lambda: voices.voice_mix_stereo_plain(*args, C5_NB, BL), 20)
-        scan_ms = event_ms(lambda: scan.affine_scan(*sargs), 50)
-        scan_plain_ms = event_ms(lambda: scan.affine_scan_plain(*sargs), 20)
-        fx_ms = {}
-        for name, fn, plain in (
-            ("max_decay", scan.max_decay_scan, scan.max_decay_scan_plain),
-            ("complex", scan.complex_affine_scan,
-             scan.complex_affine_scan_plain),
-            ("comb", scan.affine_scan, scan.affine_scan_plain),
-            ("delay", scan.affine_scan, scan.affine_scan_plain),
-        ):
-            dev = fxin[name][1]
-            fx_ms[f"{name}_kernel_ms"] = event_ms(lambda: fn(*dev), 50)
-            fx_ms[f"{name}_plain_ms"] = event_ms(lambda: plain(*dev), 20)
+        # each kernel at its main-path shape, and the tiled scans at every
+        # shape c3 and c4 run them at: device time beside the bound
+        vm_bytes = sum(a.numel() * a.element_size() for a in args) + \
+            C5_NB * BL * 2 * 4
+        dev = fxin["max_decay"][1]
+        T, C = dev[0].shape
+        per_kernel = {
+            "voice_mix_stereo": timed(
+                lambda: voices.voice_mix_stereo(*args, C5_NB, BL),
+                lambda: voices.voice_mix_stereo_plain(*args, C5_NB, BL),
+                vm_bytes, 2 * C5_NB * C5_P * BL * 2),
+            "max_decay_scan": timed(
+                lambda: scan.max_decay_scan(*dev),
+                lambda: scan.max_decay_scan_plain(*dev),
+                (2 * T * C + 2 * C) * 4, 2 * T * C),
+        }
+        gen = np.random.default_rng(4)
+        affine_t = {}
+        for name, (T, C) in affine_shapes().items():
+            ab = [torch.from_numpy(v).to(cuda) for v in (
+                gen.normal(size=(T, C)).astype(np.float32),
+                np.full(C, 0.9, np.float32), np.zeros(C, np.float32))]
+            affine_t[name] = dict(shape=[T, C], **timed(
+                lambda: scan.affine_scan(*ab),
+                lambda: scan.affine_scan_plain(*ab),
+                (2 * T * C + 2 * C) * 4, 2 * T * C))
+        dev = fxin["complex"][1]
+        T, C = dev[0].shape
+        complex_t = {"eq3_stage": dict(shape=[T, C], **timed(
+            lambda: scan.complex_affine_scan(*dev),
+            lambda: scan.complex_affine_scan_plain(*dev),
+            (4 * T * C + 4 * C) * 4, 8 * T * C))}
+        per_kernel["affine_scan"] = affine_t["band_pass"]
+        per_kernel["complex_affine_scan"] = complex_t["eq3_stage"]
         emit("timings", card=card,
              c5_render_device_s=c5_s, c5_median_s=statistics.median(c5_s),
              c1_render_device_s=c1_s, c1_median_s=statistics.median(c1_s),
              c2_render_device_s=c2_s, c2_median_s=statistics.median(c2_s),
              c3_render_device_s=c3_s, c3_median_s=statistics.median(c3_s),
              c4_render_device_s=c4_s, c4_median_s=statistics.median(c4_s),
-             voice_mix_kernel_ms=kernel_ms, voice_mix_plain_ms=plain_ms,
-             affine_scan_kernel_ms=scan_ms,
-             affine_scan_plain_ms=scan_plain_ms, **fx_ms)
+             voice_mix_stereo=per_kernel["voice_mix_stereo"],
+             max_decay_scan=per_kernel["max_decay_scan"],
+             affine_scan=affine_t, complex_affine_scan=complex_t)
 
         # 12. a profile of one c4 render
         emit("c4_profile", card=card, **profile_render(st4))
 
     print(card, flush=True)
+    rows = (
+        ("voice_mix_stereo", "voice_mix", "termdaw_tpu/ops/pallas_voices.py:50",
+         launches, max_err),
+        ("affine_scan", "affine_scan", "termdaw_tpu/ops/filters.py:72",
+         scan_launches, scan_err),
+        ("max_decay_scan", "max_decay_scan", "termdaw_tpu/ops/fx.py:63",
+         c4_counts["max_decay_scan"], mres["kernel_vs_plain"]),
+        ("complex_affine_scan", "complex_scan",
+         "termdaw_tpu/ops/filters.py:316", c4_counts["complex_scan"],
+         max(cres[p]["kernel_vs_plain"] for p in ("re", "im"))),
+    )
     print(json.dumps({"kernels": [{
-        "name": "voice_mix_stereo",
+        "name": name,
         "route": "cuda",
-        "source": "termdaw_tpu_torch/csrc/voice_mix.cu",
-        "replaces": "termdaw_tpu/ops/pallas_voices.py:50",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "affine_scan",
-        "route": "cuda",
-        "source": "termdaw_tpu_torch/csrc/affine_scan.cu",
-        "replaces": "termdaw_tpu/ops/filters.py:72",
-        "launches": scan_launches,
-        "max_abs_err": scan_err,
-        "ms": scan_ms,
-        "plain_ms": scan_plain_ms,
-    }, {
-        "name": "max_decay_scan",
-        "route": "cuda",
-        "source": "termdaw_tpu_torch/csrc/max_decay_scan.cu",
-        "replaces": "termdaw_tpu/ops/fx.py:63",
-        "launches": c4_counts["max_decay_scan"],
-        "max_abs_err": mres["kernel_vs_plain"],
-        "ms": fx_ms["max_decay_kernel_ms"],
-        "plain_ms": fx_ms["max_decay_plain_ms"],
-    }, {
-        "name": "complex_affine_scan",
-        "route": "cuda",
-        "source": "termdaw_tpu_torch/csrc/complex_scan.cu",
-        "replaces": "termdaw_tpu/ops/filters.py:316",
-        "launches": c4_counts["complex_scan"],
-        "max_abs_err": max(r["kernel_vs_plain"] for r in cres.values()),
-        "ms": fx_ms["complex_kernel_ms"],
-        "plain_ms": fx_ms["complex_plain_ms"],
-    }]}), flush=True)
+        "source": f"termdaw_tpu_torch/csrc/{src}.cu",
+        "replaces": replaces,
+        "launches": n,
+        "max_abs_err": err,
+        "ms": per_kernel[name]["ms"],
+        "plain_ms": per_kernel[name]["plain_ms"],
+        "bound_ms": per_kernel[name]["bound_ms"],
+        "bound_by": per_kernel[name]["bound_by"],
+        # no single PyTorch call computes a first-order recurrence, a
+        # max-decay scan or the voice mix
+        "library_ms": None,
+    } for name, src, replaces, n, err in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count,
     }}), flush=True)

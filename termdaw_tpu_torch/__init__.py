@@ -5,11 +5,12 @@ it is). It takes the same `project.toml` and Lua script and renders the
 same WAV, with PyTorch tensors on an explicit device and hand-written
 CUDA kernels for Hopper where the reference had Pallas kernels.
 
-This package imports `torch` and never `jax`: from `termdaw_tpu` it uses
-only the JAX-free host layers (`lua`, `fileio`, `banks.flowwbank`,
-`banks.bufferbank`, `config`, `utils.term`, `utils.prof.span`,
-`engine.sink`, `workflows.palette`). Everything else it needs is carried
-over as a module of its own, whose docstring names the file it came from.
+This package imports `torch`, never `jax`, and nothing of `termdaw_tpu`.
+Every module of the reference that it needs, the host layers included
+(`lua`, `fileio`, `banks.flowwbank`, `banks.bufferbank`, `config`,
+`utils.term`, `utils.prof.span`, `engine.sink`, `workflows.palette`), is
+carried over as a module of its own at the same relative path, whose
+docstring names the file it came from.
 
 Ported so far: the offline render (`State.render`) and playback (`play`
 in the manual workflow) of graphs made of every vertex kind: Sum,

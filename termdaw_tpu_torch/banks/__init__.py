@@ -1,9 +1,9 @@
 """Resource banks. SampleBank is the port's own (its import resampling
-runs ops/resample.py); FlowwBank and BufferBank are the reference's
-JAX-free banks, shared as they are."""
+runs ops/resample.py); FlowwBank and BufferBank are copies of the
+reference's, code unchanged."""
 
-from termdaw_tpu.banks.bufferbank import BufferBank
-from termdaw_tpu.banks.flowwbank import FlowwBank
+from .bufferbank import BufferBank
+from .flowwbank import FlowwBank
 
 from .samplebank import Sample, SampleBank, SampleLoadMethod
 

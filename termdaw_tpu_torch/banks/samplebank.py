@@ -29,8 +29,8 @@ from enum import Enum
 
 import numpy as np
 
-from termdaw_tpu.fileio.wav import read_wav, WavError
-from termdaw_tpu.utils.term import YELLOW, BLUE, DEFAULT
+from ..fileio.wav import read_wav, WavError
+from ..utils.term import YELLOW, BLUE, DEFAULT
 
 
 class SampleLoadMethod(Enum):

@@ -14,9 +14,9 @@ import argparse
 import sys
 from pathlib import Path
 
-from termdaw_tpu.config import Config, WorkFlow
-from termdaw_tpu.engine.sink import make_sink
-from termdaw_tpu.utils.term import DEFAULT, BLUE, RED
+from .config import Config, WorkFlow
+from .engine.sink import make_sink
+from .utils.term import DEFAULT, BLUE, RED
 
 from .device import resolve_device
 from .engine.state import State

@@ -12,139 +12,127 @@
 // section (u through pole p1, then y through pole p2). It is not a Pallas
 // kernel there; PyTorch has no primitive for it.
 //
-// What bounds it on this card: at the c4 eq3 shape (T = 375 * 1024
-// frames, C = 4 channels) it reads 12 MB and writes 12 MB, a few
-// microseconds of the card's 3.35 TB/s, and does 8 flops a frame and
-// lane. The recurrence is sequential per lane, so the work is a chain of
-// dependent complex multiply-adds.
+// What bounds it on this card: bytes. Each frame and lane reads f_r, f_i
+// and writes u_r, u_i (16 bytes) for 8 flops. At the c4 eq3 stage (T =
+// 375 * 1024 frames, C = 4) that is 24.6 MB, 7.3 us of the card's 3.35
+// TB/s; c4 runs 40 such scans a render. The first kernel (one CTA per
+// lane, 512 threads each walking ~750 frames twice, loads 12 KB apart
+// across a warp) ran 1.32 ms there: 4 of 132 SMs, a chain of dependent
+// complex multiply-adds waiting on uncoalesced loads.
 //
-// Design (simple and right first), the three phases of affine_scan.cu:
-// one CTA per lane, kThreads threads, thread j owns the contiguous chunk
-// [j*n, (j+1)*n) of the timeline.
-//   1. It folds its chunk into one complex affine map (A, B) sequentially.
-//   2. The CTA scans the kThreads maps in shared memory (log-step), which
-//      gives each thread the map of everything before its chunk; applied
-//      to s that is its chunk's u[-1].
-//   3. It runs the recurrence over its chunk again and writes u.
-// Every composition is _caffine_combine's (earlier, later) product:
+// Design: the tiled scan of csrc/scan_tile.cuh with two planes in and
+// two out. At the eq3 shape a tile is 1472 frames x 4 lanes (two
+// contiguous 23 KB blocks, float4 loads), 261 CTAs; each thread folds 23
+// frames of one lane from shared memory; tiles are combined
+// reduce-then-scan (two kernels; the carry across tiles, A = p^1472 and
+// the state, in float64), the second read from L2.
+//
+// Every composition is _caffine_combine's (earlier, later) product, the
+// later map times the earlier one:
 //   A = A2*A1, B = A2*B1 + B2,
-// with (ar2*ar1 - ai2*ai1, ar2*ai1 + ai2*ar1) as the complex product.
-// Later work: more CTAs per lane with a decoupled look-back; the eq3's
-// four stages and two cascades in one launch.
-//
-// Built without fast-math (kernels.NVCC_FLAGS): IEEE float32. nvcc
-// contracts multiply-adds into FMAs, which round once.
+// with (ar2*ar1 - ai2*ai1, ar2*ai1 + ai2*ar1) as the complex product, in
+// the fold, the scans over runs, warps and tiles, and the replay.
 
-#include <cuda_runtime.h>
+#include "scan_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
+using scan_tile::Args;
+using scan_tile::kFull;
 
-__global__ void __launch_bounds__(kThreads)
-complex_scan_kernel(const float* __restrict__ f_r,
-                    const float* __restrict__ f_i,
-                    const float* __restrict__ p_r,
-                    const float* __restrict__ p_i,
-                    const float* __restrict__ s_r,
-                    const float* __restrict__ s_i, float* __restrict__ u_r,
-                    float* __restrict__ u_i, long long T, int C) {
-  __shared__ float s_ar[kThreads];
-  __shared__ float s_ai[kThreads];
-  __shared__ float s_br[kThreads];
-  __shared__ float s_bi[kThreads];
+struct ComplexScanOp {
+  static constexpr int kPlanes = 2;
+  struct Map { float ar, ai, br, bi; };  // u -> A*u + B
+  struct Param { float pr, pi; };
+  struct State { float ur, ui; };
+  struct DMap { double ar, ai, br, bi; };
+  struct DState { double ur, ui; };
 
-  const int c = blockIdx.x;
-  const int j = threadIdx.x;
-  const long long n = (T + kThreads - 1) / kThreads;
-  const long long t_lo = (long long)j * n < T ? (long long)j * n : T;
-  const long long t_hi = t_lo + n < T ? t_lo + n : T;
-  const float pr = p_r[c];
-  const float pi = p_i[c];
-
-  // 1. this chunk's map: u_out = A * u_in + B (complex)
-  float ar = 1.0f, ai = 0.0f, br = 0.0f, bi = 0.0f;
-  for (long long t = t_lo; t < t_hi; ++t) {
-    const float xr = f_r[t * C + c];
-    const float xi = f_i[t * C + c];
-    const float nar = pr * ar - pi * ai;
-    const float nai = pr * ai + pi * ar;
-    const float nbr = pr * br - pi * bi + xr;
-    const float nbi = pr * bi + pi * br + xi;
-    ar = nar;
-    ai = nai;
-    br = nbr;
-    bi = nbi;
+  static __device__ Map identity() { return {1.0f, 0.0f, 0.0f, 0.0f}; }
+  // e, then l
+  static __device__ Map compose(Map e, Map l) {
+    return {l.ar * e.ar - l.ai * e.ai, l.ar * e.ai + l.ai * e.ar,
+            l.ar * e.br - l.ai * e.bi + l.br,
+            l.ar * e.bi + l.ai * e.br + l.bi};
+  }
+  static __device__ Map shfl_up(Map m, int d) {
+    return {__shfl_up_sync(kFull, m.ar, d), __shfl_up_sync(kFull, m.ai, d),
+            __shfl_up_sync(kFull, m.br, d), __shfl_up_sync(kFull, m.bi, d)};
+  }
+  static __device__ Param param(const Args& g, int c) {
+    return {__ldg(g.p[0] + c), __ldg(g.p[1] + c)};
+  }
+  // m, then the frame's map (p, f[t])
+  static __device__ Map step(Map m, Param p, const float* in) {
+    return {p.pr * m.ar - p.pi * m.ai, p.pr * m.ai + p.pi * m.ar,
+            p.pr * m.br - p.pi * m.bi + in[0],
+            p.pr * m.bi + p.pi * m.br + in[1]};
+  }
+  static __device__ State init(const Args& g, int c) {
+    return {g.s[0][c], g.s[1][c]};
+  }
+  static __device__ State apply(Map m, State s) {
+    return {m.ar * s.ur - m.ai * s.ui + m.br,
+            m.ar * s.ui + m.ai * s.ur + m.bi};
+  }
+  static __device__ State advance(State s, Param p, const float* in) {
+    return {p.pr * s.ur - p.pi * s.ui + in[0],
+            p.pr * s.ui + p.pi * s.ur + in[1]};
+  }
+  static __device__ void put(State s, float* sm, int plane, int i) {
+    sm[i] = s.ur;
+    sm[plane + i] = s.ui;
+  }
+  static __device__ void put_agg(Map m, float* agg, long long plane,
+                                 long long i) {
+    agg[i] = m.br;
+    agg[plane + i] = m.bi;
   }
 
-  // 2. inclusive scan of the chunk maps over the CTA (earlier first)
-  s_ar[j] = ar;
-  s_ai[j] = ai;
-  s_br[j] = br;
-  s_bi[j] = bi;
-  __syncthreads();
-  for (int d = 1; d < kThreads; d <<= 1) {
-    float qar = 1.0f, qai = 0.0f, qbr = 0.0f, qbi = 0.0f;
-    if (j >= d) {
-      qar = s_ar[j - d];
-      qai = s_ai[j - d];
-      qbr = s_br[j - d];
-      qbi = s_bi[j - d];
-    }
-    __syncthreads();
-    if (j >= d) {
-      // (earlier q, later mine): A = A*Aq, B = A*Bq + B
-      const float nar = ar * qar - ai * qai;
-      const float nai = ar * qai + ai * qar;
-      const float nbr = ar * qbr - ai * qbi + br;
-      const float nbi = ar * qbi + ai * qbr + bi;
-      ar = nar;
-      ai = nai;
-      br = nbr;
-      bi = nbi;
-      s_ar[j] = ar;
-      s_ai[j] = ai;
-      s_br[j] = br;
-      s_bi[j] = bi;
-    }
-    __syncthreads();
+  // float64, across tiles
+  static __device__ DMap didentity() { return {1.0, 0.0, 0.0, 0.0}; }
+  static __device__ DMap dbase(Param p) {
+    return {(double)p.pr, (double)p.pi, 0.0, 0.0};
   }
-
-  // the value entering this chunk: the maps of chunks 0..j-1 applied to s
-  float ur = s_r[c];
-  float ui = s_i[c];
-  if (j > 0) {
-    const float qar = s_ar[j - 1], qai = s_ai[j - 1];
-    const float qbr = s_br[j - 1], qbi = s_bi[j - 1];
-    const float nur = qar * ur - qai * ui + qbr;
-    const float nui = qar * ui + qai * ur + qbi;
-    ur = nur;
-    ui = nui;
+  static __device__ DMap dcompose(DMap e, DMap l) {
+    return {l.ar * e.ar - l.ai * e.ai, l.ar * e.ai + l.ai * e.ar,
+            l.ar * e.br - l.ai * e.bi + l.br,
+            l.ar * e.bi + l.ai * e.br + l.bi};
   }
-
-  // 3. the recurrence over the chunk
-  for (long long t = t_lo; t < t_hi; ++t) {
-    const float nur = pr * ur - pi * ui + f_r[t * C + c];
-    const float nui = pr * ui + pi * ur + f_i[t * C + c];
-    ur = nur;
-    ui = nui;
-    u_r[t * C + c] = ur;
-    u_i[t * C + c] = ui;
+  static __device__ DMap dshfl_up(DMap m, int d) {
+    return {__shfl_up_sync(kFull, m.ar, d), __shfl_up_sync(kFull, m.ai, d),
+            __shfl_up_sync(kFull, m.br, d), __shfl_up_sync(kFull, m.bi, d)};
   }
-}
+  static __device__ DMap dtile(DMap An, const float* agg, long long plane,
+                               long long i) {
+    return {An.ar, An.ai, (double)agg[i], (double)agg[plane + i]};
+  }
+  static __device__ DState dinit(const Args& g, int c) {
+    return {(double)g.s[0][c], (double)g.s[1][c]};
+  }
+  static __device__ DState dapply(DMap m, DState s) {
+    return {m.ar * s.ur - m.ai * s.ui + m.br,
+            m.ar * s.ui + m.ai * s.ur + m.bi};
+  }
+  static __device__ State narrow(DState s) {
+    return {(float)s.ur, (float)s.ui};
+  }
+};
 
 }  // namespace
 
 // f_r, f_i [T, C], p_r, p_i, s_r, s_i [C], u_r, u_i [T, C]: contiguous
-// float32 device memory. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); does not synchronise.
+// float32 device memory; cl, k: the tiling (kernels.scan_plan); scratch:
+// 2 * tiles * C floats when the plan has more than one tile along the
+// timeline, else unused. Launches on `stream` and returns the first CUDA
+// error (0 on success); does not synchronise.
 extern "C" int complex_scan_launch(const float* f_r, const float* f_i,
                                    const float* p_r, const float* p_i,
                                    const float* s_r, const float* s_i,
-                                   float* u_r, float* u_i, long long T, int C,
+                                   float* u_r, float* u_i, float* scratch,
+                                   long long T, int C, int cl, int k,
                                    void* stream) {
-  if (T <= 0 || C <= 0) return 0;
-  complex_scan_kernel<<<C, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      f_r, f_i, p_r, p_i, s_r, s_i, u_r, u_i, T, C);
-  return static_cast<int>(cudaGetLastError());
+  const Args args{{f_r, f_i}, {p_r, p_i}, {s_r, s_i}, {u_r, u_i}};
+  return scan_tile::launch<ComplexScanOp>(args, T, C, cl, k, scratch,
+                                          stream);
 }

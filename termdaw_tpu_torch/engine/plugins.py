@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from termdaw_tpu.utils.term import BLUE, DEFAULT, RED, YELLOW
+from ..utils.term import BLUE, DEFAULT, RED, YELLOW
 
 from ..ops.fx import EffectDef, resolve_param, resolve_uri
 

@@ -30,12 +30,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from termdaw_tpu.config import Config
-from termdaw_tpu.fileio.wav import WavWriter
-from termdaw_tpu.fileio.wavetable import WaveTable, parse_wavetable_from_buffer
-from termdaw_tpu.lua import LuaRuntime, LuaError, LuaTable
-from termdaw_tpu.utils.prof import span
-from termdaw_tpu.utils.term import DEFAULT, BLUE, YELLOW, RED, GREEN
+from ..config import Config
+from ..fileio.wav import WavWriter
+from ..fileio.wavetable import WaveTable, parse_wavetable_from_buffer
+from ..lua import LuaRuntime, LuaError, LuaTable
+from ..utils.prof import span
+from ..utils.term import DEFAULT, BLUE, YELLOW, RED, GREEN
 
 from ..banks import SampleBank, FlowwBank, BufferBank, SampleLoadMethod
 from ..device import resolve_device

@@ -26,7 +26,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from termdaw_tpu.banks.flowwbank import DrumBake, SimpleBake
+from ..banks.flowwbank import DrumBake, SimpleBake
 from ..ops.adsr import AdsrConf, np_apply_ads
 
 SENTINEL = -(2**30)

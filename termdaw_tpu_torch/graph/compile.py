@@ -47,7 +47,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from termdaw_tpu.banks.flowwbank import FlowwBank
+from ..banks.flowwbank import FlowwBank
 
 from . import bake as B
 from . import graph as G

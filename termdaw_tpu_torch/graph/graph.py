@@ -16,7 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
-from termdaw_tpu.utils.term import YELLOW, BLUE, RED, DEFAULT
+from ..utils.term import YELLOW, BLUE, RED, DEFAULT
 
 # vertex kinds (reference VertexExt variants, extensions.rs:15-80)
 SUM = "sum"

@@ -2,10 +2,14 @@
 
 Each `csrc/*.cu` file exports a plain `extern "C"` launcher. At first use
 it is compiled with nvcc for Hopper (`sm_90a`) into a shared library under
-`termdaw_tpu_torch/build/`, named by a hash of its source, and loaded with
-ctypes; `build_all` compiles several sources in parallel. Nothing is
-built when the module is imported, so the CPU tests can import
-everything without nvcc.
+`termdaw_tpu_torch/build/`, named by a hash of its source and the shared
+headers (`csrc/*.cuh`), and loaded with ctypes; `build_all` compiles
+several sources in parallel. Nothing is built when the module is
+imported, so the CPU tests can import everything without nvcc.
+
+The two tiled scans (affine_scan.cu, complex_scan.cu on
+csrc/scan_tile.cuh) take their tiling from `scan_plan`, and their
+scratch planes from the launch functions here.
 
 nvcc is looked up in `$CUDA_HOME/bin`, then `/usr/local/cuda/bin`, then
 `PATH`.
@@ -14,11 +18,13 @@ nvcc is looked up in `$CUDA_HOME/bin`, then `/usr/local/cuda/bin`, then
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -54,11 +60,13 @@ def find_nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """build/lib<name>-<hash>.so, the hash over csrc/<name>.cu, every
+    csrc/*.cuh (any of them may be included) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names) -> dict[str, Path]:
@@ -120,9 +128,9 @@ def voice_mix_lib() -> ctypes.CDLL:
 
 
 def affine_scan_lib() -> ctypes.CDLL:
-    vp = ctypes.c_void_p
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load("affine_scan", "affine_scan_launch",
-                 [vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp])
+                 [vp] * 5 + [ctypes.c_longlong, ci, ci, ci, vp])
 
 
 def max_decay_scan_lib() -> ctypes.CDLL:
@@ -132,9 +140,66 @@ def max_decay_scan_lib() -> ctypes.CDLL:
 
 
 def complex_scan_lib() -> ctypes.CDLL:
-    vp = ctypes.c_void_p
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load("complex_scan", "complex_scan_launch",
-                 [vp] * 8 + [ctypes.c_longlong, ctypes.c_int, vp])
+                 [vp] * 9 + [ctypes.c_longlong, ci, ci, ci, vp])
+
+
+SCAN_THREADS = 256            # scan_tile.cuh kThreads
+SCAN_SHARED_BYTES = 48 * 1024  # scan_tile.cuh kSharedBytes
+_WIDE_MAP_BYTES = {1: 16, 2: 32}  # sizeof(Op::DMap): affine, complex
+
+
+class ScanPlan(NamedTuple):
+    """How csrc/scan_tile.cuh cuts a [T, C] scan into tiles."""
+    cl: int          # lanes per tile: the power of two >= C, at most 32
+    k: int           # frames per run, one thread's share of one lane
+    s: int           # frames per tile, (SCAN_THREADS // cl) * k
+    tiles: int       # tiles along the timeline
+    lane_tiles: int  # tiles across the lanes
+    smem: int        # dynamic shared memory per CTA, bytes
+    scratch: int     # scratch floats (0 with one tile along the timeline)
+
+
+@functools.lru_cache(maxsize=256)
+def scan_plan(T: int, C: int, planes: int) -> ScanPlan:
+    """The tiling of a scan with `planes` input planes (1 affine, 2
+    complex), as measured fastest on an H100 (PERF.md). Below 32
+    lanes runs are odd, so the threads of a warp, K * CL floats apart in
+    shared memory, fall on 32 different banks. A timeline of at most 16
+    frames a run is one tile, one kernel (the delay line's 67 rows).
+    Longer ones are cut into tiles of about 2048 frames for at most 4
+    lanes (runs of 8 * CL - 1 frames, fewer where shared memory ends)
+    and runs of 7 frames for wider rows, combined reduce-then-scan with
+    planes * tiles * C floats of scratch."""
+    cl = 1
+    while cl < C and cl < 32:
+        cl *= 2
+    runs = SCAN_THREADS // cl
+    totals = 8 * cl * _WIDE_MAP_BYTES[planes]  # WarpTotals, static
+    k_max = (SCAN_SHARED_BYTES - totals) // (SCAN_THREADS * 4 * planes)
+    k_max -= 1 - k_max % 2
+    k = -(-T // runs)
+    if k > 16:
+        k = min(8 * cl - 1, k_max) if cl <= 4 else 7
+    elif cl < 32:
+        k |= 1
+    s = runs * k
+    tiles = -(-T // s)
+    return ScanPlan(cl, k, s, tiles, -(-C // cl),
+                    SCAN_THREADS * k * 4 * planes,
+                    planes * tiles * C if tiles > 1 else 0)
+
+
+def _scratch(plan: ScanPlan, like: torch.Tensor):
+    """The plan's scratch floats on `like`'s device and the pointer to
+    pass (None, None without scratch). The caller holds the buffer until
+    the launch is queued; the caching allocator orders its reuse after
+    the kernels on the same stream."""
+    if not plan.scratch:
+        return None, None
+    buf = torch.empty(plan.scratch, dtype=torch.float32, device=like.device)
+    return buf, buf.data_ptr()
 
 
 def voice_mix_launch(
@@ -159,13 +224,17 @@ def voice_mix_launch(
 def affine_scan_launch(b: torch.Tensor, a: torch.Tensor, y0: torch.Tensor,
                        y: torch.Tensor) -> None:
     """Launch csrc/affine_scan.cu on the tensors' device and current
-    stream. The caller (ops/scan.affine_scan) has checked devices, dtypes,
-    shapes and contiguity; raises if the launch is refused."""
+    stream, with the tiling of scan_plan and its scratch. The caller
+    (ops/scan.affine_scan) has checked devices, dtypes, shapes and
+    contiguity; raises if the launch is refused."""
     lib = affine_scan_lib()
+    T, C = b.shape
+    plan = scan_plan(T, C, 1)
     with torch.cuda.device(y.device):
+        scratch, ptr = _scratch(plan, y)
         rc = lib.affine_scan_launch(
-            b.data_ptr(), a.data_ptr(), y0.data_ptr(), y.data_ptr(),
-            b.shape[0], b.shape[1], torch.cuda.current_stream().cuda_stream,
+            b.data_ptr(), a.data_ptr(), y0.data_ptr(), y.data_ptr(), ptr,
+            T, C, plan.cl, plan.k, torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"affine_scan kernel launch failed: CUDA error {rc}")
@@ -192,14 +261,18 @@ def complex_scan_launch(f_r: torch.Tensor, f_i: torch.Tensor,
                         s_r: torch.Tensor, s_i: torch.Tensor,
                         u_r: torch.Tensor, u_i: torch.Tensor) -> None:
     """Launch csrc/complex_scan.cu on the tensors' device and current
-    stream. The caller (ops/scan.complex_affine_scan) has checked devices,
-    dtypes, shapes and contiguity; raises if the launch is refused."""
+    stream, with the tiling of scan_plan and its scratch. The caller
+    (ops/scan.complex_affine_scan) has checked devices, dtypes, shapes and
+    contiguity; raises if the launch is refused."""
     lib = complex_scan_lib()
+    T, C = f_r.shape
+    plan = scan_plan(T, C, 2)
     with torch.cuda.device(u_r.device):
+        scratch, ptr = _scratch(plan, u_r)
         rc = lib.complex_scan_launch(
             f_r.data_ptr(), f_i.data_ptr(), p_r.data_ptr(), p_i.data_ptr(),
             s_r.data_ptr(), s_i.data_ptr(), u_r.data_ptr(), u_i.data_ptr(),
-            f_r.shape[0], f_r.shape[1],
+            ptr, T, C, plan.cl, plan.k,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:

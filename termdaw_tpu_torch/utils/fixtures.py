@@ -1,8 +1,9 @@
 """Generated projects of the shapes the port covers.
 
 Five bench configurations of the render path (bench.py), written with
-numpy and the reference's JAX-free file writers (fileio.wav, fileio.midi,
-fileio.wavetable) so the same project can be loaded by either package:
+numpy and the port's file writers (fileio.wav, fileio.midi,
+fileio.wavetable, copies of the reference's), so the same project can be
+loaded by either package:
 
 * c1 (bench.py:372-395): two SampleLoops -> Normalize, rendered at
   44.1 kHz 16-bit (a render resample when the project rate is higher);
@@ -26,11 +27,11 @@ from pathlib import Path
 
 import numpy as np
 
-from termdaw_tpu.config import Config
-from termdaw_tpu.fileio.midi import write_midi
-from termdaw_tpu.fileio.packets import PacketDecoder, encode_events
-from termdaw_tpu.fileio.wav import write_wav
-from termdaw_tpu.fileio.wavetable import WaveTable, write_wavetable
+from ..config import Config
+from ..fileio.midi import write_midi
+from ..fileio.packets import PacketDecoder, encode_events
+from ..fileio.wav import write_wav
+from ..fileio.wavetable import WaveTable, write_wavetable
 
 
 def drum(path, sr, dur, freq, decay, noise=0.0, seed=0) -> None:

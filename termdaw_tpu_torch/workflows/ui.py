@@ -1,8 +1,8 @@
 """Manual workflow: interactive command loop + paced playback.
 
 Carried over from termdaw_tpu/workflows/ui.py; it builds the port's
-Player (engine/player.py) and reuses the reference's JAX-free command
-palette (termdaw_tpu/workflows/palette.py).
+Player (engine/player.py) and the port's copy of the command palette
+(workflows/palette.py).
 
 The reference runs a `skim` fuzzy command palette on a UI thread and an
 engine thread joined by mpsc channels (ui_workflow.rs:14-115). Here the
@@ -25,7 +25,7 @@ import queue
 import sys
 import threading
 
-from termdaw_tpu.utils.term import DEFAULT, BLUE, RED, MAGENTA
+from ..utils.term import DEFAULT, BLUE, RED, MAGENTA
 
 from ..engine.player import Player
 
@@ -68,7 +68,7 @@ def run_ui_workflow(
     if use_palette:
         # arrow-key fuzzy selector on the controlling TTY
         # (reference ui_workflow.rs:35-45, doc.md:40-42)
-        from termdaw_tpu.workflows.palette import Palette
+        from .palette import Palette
 
         pal = Palette(COMMANDS)
 

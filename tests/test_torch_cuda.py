@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from termdaw_tpu.engine.sink import Sink
-
+from termdaw_tpu_torch import kernels
 from termdaw_tpu_torch.engine.player import Player
+from termdaw_tpu_torch.engine.sink import Sink
 from termdaw_tpu_torch.ops import filters, fx, scan, voices
 from termdaw_tpu_torch.utils.fixtures import (
     load_state, read_wav_ints, write_c2_project, write_c3_project,
@@ -84,10 +84,10 @@ def test_small_c5_render_on_card_matches_cpu(cuda, tmp_path):
 @pytest.mark.parametrize("T", [1, 5, 1000, 1025, 100003, 384000])
 @pytest.mark.parametrize("C", [1, 2, 4])
 def test_scan_kernel_matches_plain_on_card(cuda, T, C):
-    """The kernel runs the recurrence sequentially within chunks, the
-    plain version as a two-level log-step scan: both are held to a
-    float64 recurrence at 1e-4 (the reference's bound) and to each other
-    at 1e-5, relative to the largest |y|."""
+    """The kernel scans tiles of runs, the plain version is a two-level
+    log-step scan: both are held to a float64 recurrence at 1e-4 (the
+    reference's bound) and to each other at 1e-5, relative to the largest
+    |y|; a second run of the same input is bit-identical."""
     rng = np.random.default_rng(T * 10 + C)
     b = rng.normal(size=(T, C)).astype(np.float32)
     a = rng.uniform(0.0, 0.999, C).astype(np.float32)
@@ -98,6 +98,7 @@ def test_scan_kernel_matches_plain_on_card(cuda, T, C):
     got = scan.affine_scan(*args)
     torch.cuda.synchronize()
     assert scan.launches == n0 + 1
+    assert torch.equal(scan.affine_scan(*args), got)
     want = scan.affine_scan_plain(*args)
     y64 = np.empty((T, C))
     prev = y0.astype(np.float64)
@@ -150,8 +151,8 @@ def test_player_on_card(cuda, tmp_path):
     assert all(np.isfinite(c).all() for c in sink.chunks[1:])
 
 
-# T = 1, T below the 512 threads of a CTA, a ragged T over many chunks,
-# one c4 window (375 blocks of 1024 frames) with one frame more
+# T = 1, a few frames, a ragged T over a few and over many tiles, one c4
+# window (375 blocks of 1024 frames) with one frame more
 EDGE_T = [1, 7, 511, 1025, 100003, 384001]
 
 
@@ -225,8 +226,8 @@ def _eq_poles(sr=48000):
     return out
 
 
-@pytest.mark.parametrize("T,C", [(T, 4) for T in EDGE_T] + [(1025, 1),
-                                                             (300, 600)])
+@pytest.mark.parametrize("T,C", [(T, 4) for T in EDGE_T] + [
+    (1025, 1), (300, 600), (384000, 1), (384000, 2)])
 def test_complex_scan_kernel_matches_plain_on_card(cuda, T, C):
     rng = np.random.default_rng(7 * T + C)
     p180, p4k = _eq_poles()
@@ -241,11 +242,94 @@ def test_complex_scan_kernel_matches_plain_on_card(cuda, T, C):
     gr, gi = scan.complex_affine_scan(*args)
     torch.cuda.synchronize()
     assert scan.complex_launches == n0 + 1
+    again = scan.complex_affine_scan(*args)
+    assert torch.equal(again[0], gr) and torch.equal(again[1], gi)
     wr, wi = scan.complex_affine_scan_plain(*args)
     u64 = _complex64(f.astype(np.complex128), poles.astype(np.complex128),
                      s)
     _check_close(gr.cpu().numpy(), wr.cpu().numpy(), u64.real, "real")
     _check_close(gi.cpu().numpy(), wi.cpu().numpy(), u64.imag, "imag")
+
+
+def _tiled_args(op, T, C, seed, pole=None):
+    """Seeded inputs of the affine (b, a, y0) or complex (f_r, f_i, p_r,
+    p_i, s_r, s_i) scan, and their float64 recurrence as [parts]. `pole`
+    sets every lane's a (affine) or |p| (complex, the conjugate pair at
+    20 Hz at 48 kHz on alternate lanes)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(T, C)).astype(np.float32)
+    if op == "affine":
+        a = (np.full(C, pole) if pole else rng.uniform(0.0, 0.999, C))
+        a = a.astype(np.float32)
+        y0 = rng.normal(size=C).astype(np.float32)
+        y64 = np.empty((T, C))
+        prev = y0.astype(np.float64)
+        for t in range(T):
+            prev = a.astype(np.float64) * prev + x[t]
+            y64[t] = prev
+        return (x, a, y0), [y64]
+    if pole:
+        p = pole * np.exp(2j * np.pi * 20.0 / 48000)
+        poles = np.resize(np.asarray([p, np.conj(p)]), C)
+    else:
+        p180, p4k = _eq_poles()
+        poles = np.resize(np.asarray([p180, np.conj(p4k), 0.95, -0.6 + 0.5j]),
+                          C)
+    poles = poles.astype(np.complex64)
+    fi = rng.normal(size=(T, C)).astype(np.float32)
+    s = (rng.normal(size=C) + 1j * rng.normal(size=C)).astype(np.complex64)
+    u64 = _complex64(x + 1j * fi.astype(np.float64),
+                     poles.astype(np.complex128), s)
+    return (x, fi, poles.real.copy(), poles.imag.copy(), s.real.copy(),
+            s.imag.copy()), [u64.real, u64.imag]
+
+
+_TILED = {"affine": (scan.affine_scan, scan.affine_scan_plain, 1),
+          "complex": (scan.complex_affine_scan,
+                      scan.complex_affine_scan_plain, 2)}
+
+
+@pytest.mark.parametrize("op", sorted(_TILED))
+@pytest.mark.parametrize("T,C", [(100, 4), ("ragged", 4), ("ragged", 1),
+                                 (216, 1785), (67, 11520)])
+def test_tiled_scan_matches_plain_on_card(cuda, op, T, C):
+    """The tiled kernels, beside the shapes of the two tests above: below
+    one tile, ragged over three tiles of kernels.scan_plan, the longest
+    reverb comb and the delay of c4's feedback lines; against their plain
+    versions and float64 (the rules of chip_smoke's scan phases), and two
+    runs of the same input bit-identical."""
+    fn, plain, planes = _TILED[op]
+    if T == "ragged":
+        T = 3 * kernels.scan_plan(384000, C, planes).s + 5
+    host, y64 = _tiled_args(op, T, C, seed=T + C)
+    args = [torch.from_numpy(np.ascontiguousarray(v)).to(cuda) for v in host]
+    got = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    got = got if op == "complex" else (got,)
+    again = again if op == "complex" else (again,)
+    want = plain(*args)
+    want = want if op == "complex" else (want,)
+    for g, a, w, y in zip(got, again, want, y64):
+        assert torch.equal(g, a)
+        _check_close(g.cpu().numpy(), w.cpu().numpy(), y, f"{op} {T}x{C}")
+
+
+@pytest.mark.parametrize("op", sorted(_TILED))
+def test_tiled_scan_slow_pole_on_card(cuda, op):
+    """A slow pole (a or |p| = 0.9999) over one c4 window: every tile
+    composes the same power of the pole, so an error shared by the tiles
+    would compound; the kernel stays within 1e-4 of float64 relative to
+    max |y|."""
+    fn, _, _ = _TILED[op]
+    host, y64 = _tiled_args(op, 384000, 4, seed=3, pole=0.9999)
+    got = fn(*(torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+               for v in host))
+    got = got if op == "complex" else (got,)
+    scale = max(float(np.abs(y).max()) for y in y64)
+    for g, y in zip(got, y64):
+        np.testing.assert_allclose(g.cpu().numpy(), y, rtol=0,
+                                   atol=1e-4 * scale)
 
 
 @pytest.mark.parametrize("op", ["affine", "max_decay", "complex"])

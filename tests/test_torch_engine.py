@@ -226,7 +226,12 @@ write_c3_project({str(tmp_path / 'c3')!r}, 2.0, 8000, 256)
 load_state({str(tmp_path / 'c3')!r}, torch.device('cpu')).render()
 write_c4_project({str(tmp_path / 'c4')!r}, 1.0, 8000, 256, render_sr=8000)
 load_state({str(tmp_path / 'c4')!r}, torch.device('cpu')).render()
+import termdaw_tpu_torch.cli
+import termdaw_tpu_torch.workflows.ui
 assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)
+ref = sorted(m for m in sys.modules
+             if m == 'termdaw_tpu' or m.startswith('termdaw_tpu.'))
+assert not ref, ref
 print('JAXFREE')
 """
     proc = subprocess.run(

@@ -29,6 +29,7 @@ from termdaw_tpu.engine.plugins import PluginHost as RefPluginHost
 from termdaw_tpu.ops import filters as rfilt
 from termdaw_tpu.ops import fx as rfx
 
+from termdaw_tpu_torch import kernels
 from termdaw_tpu_torch.engine.plugins import AddPluginError, PluginHost
 from termdaw_tpu_torch.ops import filters, fx, scan
 
@@ -275,6 +276,50 @@ def test_complex_affine_scan_plain_matches_reference_and_float64(T, C):
         np.complex128), s)
     np.testing.assert_allclose(gr.numpy() + 1j * gi.numpy(), u64, rtol=0,
                                atol=1e-4 * max(1.0, np.abs(u64).max()))
+
+
+# the scans' shapes in a c4 window at 48 kHz: eq3 stage, band-pass,
+# reverb damping, compressor smoothing, longest and shortest comb,
+# longest allpass, delay; and edge shapes
+@pytest.mark.parametrize("T,C,planes", [
+    (384000, 4, 2), (384000, 4, 1), (384000, 2, 1), (384000, 1, 1),
+    (216, 1785, 1), (317, 1215, 1), (1568, 490, 1), (67, 11520, 1),
+    (1, 1, 1), (1, 1, 2), (5, 3, 2), (4097, 33, 2)])
+def test_scan_plan_tiles_cover_the_scan_within_shared_memory(T, C, planes):
+    """kernels.scan_plan, which the tiled kernels take their tiling from:
+    the tiles cover [T, C]; a CTA fits 48 KB of shared memory with the
+    per-warp totals; runs are odd below 32 lanes (bank-conflict free);
+    one c4 window of the eq3 or band-pass fills the card's 132 SMs; the
+    delay line is one tile; scratch holds each tile's B per lane."""
+    p = kernels.scan_plan(T, C, planes)
+    assert p.cl >= min(C, 32) and p.cl & (p.cl - 1) == 0 and p.cl <= 32
+    assert p.s == (kernels.SCAN_THREADS // p.cl) * p.k
+    assert p.tiles == -(-T // p.s) and p.lane_tiles * p.cl >= C
+    assert p.smem == kernels.SCAN_THREADS * p.k * 4 * planes
+    totals = 8 * p.cl * (16 if planes == 1 else 32)
+    assert p.smem + totals <= kernels.SCAN_SHARED_BYTES
+    assert p.cl == 32 or p.k % 2 == 1
+    assert p.scratch == (planes * p.tiles * C if p.tiles > 1 else 0)
+    if T == 384000 and C == 4:
+        assert p.tiles * p.lane_tiles >= 132
+    if (T, C) == (67, 11520):
+        assert p.tiles == 1
+
+
+def test_kernel_build_key_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """A library is named by its source, every csrc/*.cuh and the flags:
+    editing a header names a new library, so a stale one is not loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in kernels.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    before = {n: kernels._lib_path(n) for n in kernels.KERNELS}
+    header = csrc / "scan_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: kernels._lib_path(n) for n in kernels.KERNELS}
+    assert all(before[n] != after[n] for n in kernels.KERNELS)
+    assert after == {n: kernels._lib_path(n) for n in kernels.KERNELS}
 
 
 def _biquad64(x, coefs, state):

@@ -14,10 +14,11 @@ import torch
 
 from termdaw_tpu.config import Config
 from termdaw_tpu.engine.player import Player as RefPlayer
-from termdaw_tpu.engine.sink import Sink
+from termdaw_tpu.engine.sink import Sink as RefSink
 from termdaw_tpu.engine.state import State as RefState
 
 from termdaw_tpu_torch.engine.player import Player
+from termdaw_tpu_torch.engine.sink import Sink
 from termdaw_tpu_torch.utils.fixtures import (
     load_state, write_c2_project, write_c3_project,
 )
@@ -31,7 +32,7 @@ CPU = torch.device("cpu")
 SR, BL = 8000, 256
 
 
-class CaptureSink(Sink):
+class _Capture:
     """Keeps every queued chunk; clear() drops them, as a real queue."""
 
     def __init__(self) -> None:
@@ -49,6 +50,14 @@ class CaptureSink(Sink):
         self.resumed += 1
 
 
+class CaptureSink(_Capture, Sink):
+    """The port's sink interface, for the port's Player."""
+
+
+class RefCaptureSink(_Capture, RefSink):
+    """The reference's sink interface, for the reference's Player."""
+
+
 def _ref_state(d, monkeypatch):
     monkeypatch.setenv("TERMDAW_MESH", "0")
     st = RefState(Config.read(Path(d) / "project.toml"), str(d))
@@ -58,7 +67,7 @@ def _ref_state(d, monkeypatch):
 
 
 def _players(d, monkeypatch):
-    ref_sink, port_sink = CaptureSink(), CaptureSink()
+    ref_sink, port_sink = RefCaptureSink(), CaptureSink()
     return (RefPlayer(_ref_state(d, monkeypatch), ref_sink, SR, BL), ref_sink,
             Player(load_state(d, CPU), port_sink, SR, BL), port_sink)
 

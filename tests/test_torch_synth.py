@@ -22,8 +22,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from termdaw_tpu.banks.flowwbank import DrumBake, SimpleBake
-from termdaw_tpu.fileio.wavetable import WaveTable
 from termdaw_tpu.ops import adsr as radsr
 from termdaw_tpu.ops import envelope as renv
 from termdaw_tpu.ops import filters as rfilt
@@ -31,6 +29,8 @@ from termdaw_tpu.ops import osc as rosc
 from termdaw_tpu.ops import sampler as rsampler
 from termdaw_tpu.ops import synthv as rsynth
 
+from termdaw_tpu_torch.banks.flowwbank import DrumBake, SimpleBake
+from termdaw_tpu_torch.fileio.wavetable import WaveTable
 from termdaw_tpu_torch.graph import bake as B
 from termdaw_tpu_torch.graph.compile import time_table
 from termdaw_tpu_torch.ops import adsr, envelope, filters, osc, sampler, scan
