@@ -1,5 +1,5 @@
-// Tiled first-order scans for Hopper (sm_90a): what csrc/affine_scan.cu
-// and csrc/complex_scan.cu share.
+// Tiled first-order scans for Hopper (sm_90a): what csrc/affine_scan.cu,
+// csrc/complex_scan.cu and csrc/max_decay_scan.cu share.
 //
 // A scan runs a recurrence state[t, c] = f(state[t-1, c], x[t, c]) along
 // the timeline of every lane c of row-major [T, C] planes, from a given
@@ -51,8 +51,9 @@
 // pole. The carry therefore builds A = a^S itself, in float64 by
 // repeated squaring of the f32 pole, and composes the tiles' B and the
 // state in float64. Inside a tile everything is f32 (at most 256 composed
-// runs). No fast-math (kernels.NVCC_FLAGS); nvcc contracts multiply-adds
-// into FMAs, which round once.
+// runs), but for the max-decay's decay product, which its Op keeps in
+// double (see max_decay_scan.cu). No fast-math (kernels.NVCC_FLAGS);
+// nvcc contracts multiply-adds into FMAs, which round once.
 //
 // The scratch planes (each tile's B, per lane) are allocated by the
 // caller (kernels.py); the kernels allocate nothing.
@@ -71,7 +72,7 @@ constexpr size_t kSharedBytes = 48 * 1024;
 
 // Pointers of one scan: up to two input planes x [T, C], per-lane
 // parameters p [C], the state before frame 0 s [C], output planes y
-// [T, C]. The affine scan uses index 0 only.
+// [T, C]. The affine and max-decay scans use index 0 only.
 struct Args {
   const float* x[2];
   const float* p[2];

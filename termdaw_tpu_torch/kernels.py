@@ -7,9 +7,11 @@ headers (`csrc/*.cuh`), and loaded with ctypes; `build_all` compiles
 several sources in parallel. Nothing is built when the module is
 imported, so the CPU tests can import everything without nvcc.
 
-The two tiled scans (affine_scan.cu, complex_scan.cu on
-csrc/scan_tile.cuh) take their tiling from `scan_plan`, and their
-scratch planes from the launch functions here.
+The three tiled scans (affine_scan.cu, complex_scan.cu and
+max_decay_scan.cu on csrc/scan_tile.cuh) take their tiling from
+`scan_plan`, and their scratch planes from the launch functions here;
+the voice mix takes its regime, grid and shared memory from
+`voice_mix_plan`.
 
 nvcc is looked up in `$CUDA_HOME/bin`, then `/usr/local/cuda/bin`, then
 `PATH`.
@@ -121,10 +123,10 @@ def _load(name: str, fn_name: str, argtypes: list) -> ctypes.CDLL:
 
 
 def voice_mix_lib() -> ctypes.CDLL:
-    vp = ctypes.c_void_p
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load("voice_mix", "voice_mix_stereo_launch",
-                 [vp, ctypes.c_longlong, vp, vp, vp, ctypes.c_int,
-                  ctypes.c_int, ctypes.c_int, vp, vp])
+                 [vp, ctypes.c_longlong, vp, vp, vp, ci, ci, ci, vp, ci, ci,
+                  ci, ci, vp])
 
 
 def affine_scan_lib() -> ctypes.CDLL:
@@ -134,9 +136,9 @@ def affine_scan_lib() -> ctypes.CDLL:
 
 
 def max_decay_scan_lib() -> ctypes.CDLL:
-    vp = ctypes.c_void_p
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load("max_decay_scan", "max_decay_scan_launch",
-                 [vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp])
+                 [vp] * 5 + [ctypes.c_longlong, ci, ci, ci, vp])
 
 
 def complex_scan_lib() -> ctypes.CDLL:
@@ -147,7 +149,9 @@ def complex_scan_lib() -> ctypes.CDLL:
 
 SCAN_THREADS = 256            # scan_tile.cuh kThreads
 SCAN_SHARED_BYTES = 48 * 1024  # scan_tile.cuh kSharedBytes
-_WIDE_MAP_BYTES = {1: 16, 2: 32}  # sizeof(Op::DMap): affine, complex
+# each tiled scan's op: (input planes, bytes of one per-warp total, the
+# larger of sizeof(Op::Map) and sizeof(Op::DMap))
+SCAN_OPS = {"affine": (1, 16), "max_decay": (1, 16), "complex": (2, 32)}
 
 
 class ScanPlan(NamedTuple):
@@ -162,26 +166,29 @@ class ScanPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def scan_plan(T: int, C: int, planes: int) -> ScanPlan:
-    """The tiling of a scan with `planes` input planes (1 affine, 2
-    complex), as measured fastest on an H100 (PERF.md). Below 32
-    lanes runs are odd, so the threads of a warp, K * CL floats apart in
-    shared memory, fall on 32 different banks. A timeline of at most 16
-    frames a run is one tile, one kernel (the delay line's 67 rows).
-    Longer ones are cut into tiles of about 2048 frames for at most 4
-    lanes (runs of 8 * CL - 1 frames, fewer where shared memory ends)
-    and runs of 7 frames for wider rows, combined reduce-then-scan with
-    planes * tiles * C floats of scratch."""
+def scan_plan(T: int, C: int, op: str) -> ScanPlan:
+    """The tiling of a scan by `op` (a key of SCAN_OPS), as measured
+    fastest on an H100 (PERF.md). Below 32 lanes runs are odd, so the
+    threads of a warp, K * CL floats apart in shared memory, fall on 32
+    different banks. A timeline of at most 16 frames a run is one tile,
+    one kernel (the delay line's 67 rows). Longer ones are cut into tiles
+    of about 2048 frames for at most 4 lanes (runs of 8 * CL - 1 frames,
+    fewer where shared memory ends) and runs of 7 frames for wider rows,
+    combined reduce-then-scan with planes * tiles * C floats of scratch;
+    a timeline that one such tile covers takes the shortest odd run that
+    covers it."""
+    planes, total_bytes = SCAN_OPS[op]
     cl = 1
     while cl < C and cl < 32:
         cl *= 2
     runs = SCAN_THREADS // cl
-    totals = 8 * cl * _WIDE_MAP_BYTES[planes]  # WarpTotals, static
+    totals = 8 * cl * total_bytes  # WarpTotals, static
     k_max = (SCAN_SHARED_BYTES - totals) // (SCAN_THREADS * 4 * planes)
     k_max -= 1 - k_max % 2
     k = -(-T // runs)
     if k > 16:
-        k = min(8 * cl - 1, k_max) if cl <= 4 else 7
+        run = min(8 * cl - 1, k_max) if cl <= 4 else 7
+        k = k | 1 if k <= run else run
     elif cl < 32:
         k |= 1
     s = runs * k
@@ -202,79 +209,112 @@ def _scratch(plan: ScanPlan, like: torch.Tensor):
     return buf, buf.data_ptr()
 
 
+VOICE_MIX_TILE = 256      # voice_mix.cu kTile: frames of one work item
+VOICE_MIX_MAX_WARPS = 32  # voice_mix.cu kMaxWarps: a CTA's most warps
+VOICE_MIX_MIN_STAGING_WARPS = 8  # a staged CTA's fewest warps (all copy)
+# dynamic shared memory the staged regime may take for the [2, lpad]
+# buffer (8 * lpad bytes, plus 16 to copy it as aligned float4s); with
+# the 16 KB of slot tables (static) a CTA stays within the 227 KB it may
+# use
+VOICE_MIX_RESIDENT_BYTES = 200 * 1024
+VOICE_MIX_RESIDENT_LPAD = (VOICE_MIX_RESIDENT_BYTES - 16) // 8
+H100_SMS = 132
+
+
+class VoiceMixPlan(NamedTuple):
+    """How csrc/voice_mix.cu runs one mix."""
+    resident: bool  # the buffer staged in shared memory, else streamed
+    grid: int       # CTAs, at most one an SM
+    threads: int    # threads per CTA, a warp per item at a time
+    smem: int       # dynamic shared memory per CTA, bytes (0 streamed)
+    items: int      # (block, 256-frame tile) work items
+
+
+def voice_mix_plan(lpad: int, nb: int, bl: int,
+                   sms: int = H100_SMS) -> VoiceMixPlan:
+    """The regime of a mix of nb blocks of bl frames from a [2, lpad]
+    buffer (lpad >= 256), on a card of `sms` SMs. Resident (the
+    buffer staged in shared memory) when it fits VOICE_MIX_RESIDENT_BYTES
+    (lpad up to VOICE_MIX_RESIDENT_LPAD), else streamed from global
+    memory. Either way each warp mixes one item at a time, and a CTA has
+    as few warps as spread the items over the SMs in one round (up to 32;
+    at least 8 when staged, since every thread helps copy the buffer).
+    The number of slots does not change the plan: a warp stages its slot
+    table 32 entries at a time."""
+    tiles = -(-bl // VOICE_MIX_TILE)
+    items = nb * tiles
+    resident = lpad <= VOICE_MIX_RESIDENT_LPAD
+    least = VOICE_MIX_MIN_STAGING_WARPS if resident else 1
+    warps = max(least, min(VOICE_MIX_MAX_WARPS, -(-items // sms)))
+    grid = max(1, min(sms, -(-items // warps)))
+    return VoiceMixPlan(resident, grid, 32 * warps,
+                        8 * lpad + 16 if resident else 0, items)
+
+
 def voice_mix_launch(
     sample_padded: torch.Tensor, begins: torch.Tensor, amp_l: torch.Tensor,
     amp_r: torch.Tensor, out: torch.Tensor, nb: int, bl: int,
 ) -> None:
-    """Launch csrc/voice_mix.cu on the tensors' device and current stream.
-    The caller (ops/voices.voice_mix_stereo) has checked devices, dtypes,
-    shapes and contiguity; raises if the launch is refused."""
+    """Launch csrc/voice_mix.cu on the tensors' device and current stream,
+    in the regime of voice_mix_plan. The caller
+    (ops/voices.voice_mix_stereo) has checked devices, dtypes, shapes and
+    contiguity; raises if the launch is refused."""
     lib = voice_mix_lib()
+    lpad, P = sample_padded.shape[1], begins.shape[1]
     with torch.cuda.device(out.device):
+        props = torch.cuda.get_device_properties(out.device)
+        plan = voice_mix_plan(lpad, nb, bl, props.multi_processor_count)
         rc = lib.voice_mix_stereo_launch(
-            sample_padded.data_ptr(), sample_padded.shape[1],
-            begins.data_ptr(), amp_l.data_ptr(), amp_r.data_ptr(), nb,
-            begins.shape[1], bl, out.data_ptr(),
+            sample_padded.data_ptr(), lpad, begins.data_ptr(),
+            amp_l.data_ptr(), amp_r.data_ptr(), nb, P, bl, out.data_ptr(),
+            int(plan.resident), plan.grid, plan.threads, plan.smem,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"voice_mix kernel launch failed: CUDA error {rc}")
 
 
+def _scan_launch(lib, name: str, op: str, ins: tuple, outs: tuple) -> None:
+    """Launch the tiled scan csrc/<name>.cu (its library from `lib`) on
+    the tensors' device and current stream, with the tiling of
+    scan_plan(T, C, op) and its scratch: pointers ins (sequences, then
+    per-lane values), outs, the scratch, then T, C, cl, k and the
+    stream."""
+    fn = getattr(lib(), f"{name}_launch")
+    T, C = ins[0].shape
+    plan = scan_plan(T, C, op)
+    with torch.cuda.device(outs[0].device):
+        scratch, ptr = _scratch(plan, outs[0])
+        rc = fn(*(t.data_ptr() for t in ins + outs), ptr, T, C, plan.cl,
+                plan.k, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
 def affine_scan_launch(b: torch.Tensor, a: torch.Tensor, y0: torch.Tensor,
                        y: torch.Tensor) -> None:
-    """Launch csrc/affine_scan.cu on the tensors' device and current
-    stream, with the tiling of scan_plan and its scratch. The caller
+    """Launch csrc/affine_scan.cu (see _scan_launch). The caller
     (ops/scan.affine_scan) has checked devices, dtypes, shapes and
     contiguity; raises if the launch is refused."""
-    lib = affine_scan_lib()
-    T, C = b.shape
-    plan = scan_plan(T, C, 1)
-    with torch.cuda.device(y.device):
-        scratch, ptr = _scratch(plan, y)
-        rc = lib.affine_scan_launch(
-            b.data_ptr(), a.data_ptr(), y0.data_ptr(), y.data_ptr(), ptr,
-            T, C, plan.cl, plan.k, torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"affine_scan kernel launch failed: CUDA error {rc}")
+    _scan_launch(affine_scan_lib, "affine_scan", "affine", (b, a, y0),
+                 (y,))
 
 
 def max_decay_scan_launch(x: torch.Tensor, r: torch.Tensor, y0: torch.Tensor,
                           y: torch.Tensor) -> None:
-    """Launch csrc/max_decay_scan.cu on the tensors' device and current
-    stream. The caller (ops/scan.max_decay_scan) has checked devices,
-    dtypes, shapes and contiguity; raises if the launch is refused."""
-    lib = max_decay_scan_lib()
-    with torch.cuda.device(y.device):
-        rc = lib.max_decay_scan_launch(
-            x.data_ptr(), r.data_ptr(), y0.data_ptr(), y.data_ptr(),
-            x.shape[0], x.shape[1], torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"max_decay_scan kernel launch failed: CUDA error {rc}")
+    """Launch csrc/max_decay_scan.cu (see _scan_launch). The caller
+    (ops/scan.max_decay_scan) has checked devices, dtypes, shapes and
+    contiguity; raises if the launch is refused."""
+    _scan_launch(max_decay_scan_lib, "max_decay_scan", "max_decay",
+                 (x, r, y0), (y,))
 
 
 def complex_scan_launch(f_r: torch.Tensor, f_i: torch.Tensor,
                         p_r: torch.Tensor, p_i: torch.Tensor,
                         s_r: torch.Tensor, s_i: torch.Tensor,
                         u_r: torch.Tensor, u_i: torch.Tensor) -> None:
-    """Launch csrc/complex_scan.cu on the tensors' device and current
-    stream, with the tiling of scan_plan and its scratch. The caller
+    """Launch csrc/complex_scan.cu (see _scan_launch). The caller
     (ops/scan.complex_affine_scan) has checked devices, dtypes, shapes and
     contiguity; raises if the launch is refused."""
-    lib = complex_scan_lib()
-    T, C = f_r.shape
-    plan = scan_plan(T, C, 2)
-    with torch.cuda.device(u_r.device):
-        scratch, ptr = _scratch(plan, u_r)
-        rc = lib.complex_scan_launch(
-            f_r.data_ptr(), f_i.data_ptr(), p_r.data_ptr(), p_i.data_ptr(),
-            s_r.data_ptr(), s_i.data_ptr(), u_r.data_ptr(), u_i.data_ptr(),
-            ptr, T, C, plan.cl, plan.k,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"complex_scan kernel launch failed: CUDA error {rc}")
+    _scan_launch(complex_scan_lib, "complex_scan", "complex",
+                 (f_r, f_i, p_r, p_i, s_r, s_i), (u_r, u_i))

@@ -89,9 +89,11 @@ def _check(sample_padded, begins, amp_l, amp_r, nb, bl) -> None:
     if amp_l.shape != begins.shape or amp_r.shape != begins.shape:
         raise ValueError("voice_mix_stereo: amp_l/amp_r must match begins' "
                          f"shape {tuple(begins.shape)}")
-    if bl <= 0 or sample_padded.shape[1] < bl:
+    if bl <= 0 or sample_padded.shape[1] < max(bl, 256):
         raise ValueError(f"voice_mix_stereo: bad block length {bl} for a "
-                         f"padded sample of {sample_padded.shape[1]} frames")
+                         f"padded sample of {sample_padded.shape[1]} frames "
+                         "(at least max(bl, 256): make_padded_sample's "
+                         "layout has 2 * bl + L + 256)")
 
 
 def voice_mix_stereo(

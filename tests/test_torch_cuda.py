@@ -30,43 +30,72 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def test_kernel_matches_plain_on_card(cuda):
-    """Bit-exact: the kernel and the plain version both round the multiply
-    and the add separately, in slot order."""
-    rng = np.random.default_rng(5)
-    nb, bl, P, L = 37, 1024, 16, 3840
-    padded = torch.from_numpy(
-        rng.normal(size=(2, 2 * (2 * bl + L + 256))).astype(np.float32)
-    ).to(cuda)
-    begins = torch.from_numpy(
-        rng.integers(0, padded.shape[1] - bl, (nb, P)).astype(np.int32)
-    ).to(cuda)
+def _mix_args(cuda, rng, nb, bl, P, L, offset=0):
+    """A padded sample of L frames in make_padded_sample's layout ([2, bl
+    + L + bl + 256]), `offset` floats into its storage (a buffer that is
+    not 16-byte aligned), begins in [0, L + bl] with both ends present,
+    amps in [-1, 1]."""
+    lpad = 2 * bl + L + 256
+    store = torch.from_numpy(
+        rng.normal(size=offset + 2 * lpad).astype(np.float32)).to(cuda)
+    padded = store[offset:].view(2, lpad)
+    begins = rng.integers(0, L + bl + 1, (nb, P)).astype(np.int32)
+    begins[0, 0], begins[-1, -1] = 0, L + bl
     al, ar = (torch.from_numpy(rng.uniform(-1, 1, (nb, P)).astype(np.float32))
               .to(cuda) for _ in range(2))
+    return padded, torch.from_numpy(begins).to(cuda), al, ar
+
+
+def _mix_on_card(args, nb, bl):
+    """The kernel once, counted, and bit-exact to the plain version."""
     n0 = voices.launches
-    got = voices.voice_mix_stereo(padded, begins, al, ar, nb, bl)
+    got = voices.voice_mix_stereo(*args, nb, bl)
     torch.cuda.synchronize()
     assert voices.launches == n0 + 1
-    want = voices.voice_mix_stereo_plain(padded, begins, al, ar, nb, bl)
+    want = voices.voice_mix_stereo_plain(*args, nb, bl)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# padded lengths: c5's 0.08 s hit, the resident budget's last frame and
+# the first frame over it, a 30 s sample (11.5 MB, streamed)
+_LPADS = {"c5": 6144, "under": kernels.VOICE_MIX_RESIDENT_LPAD,
+          "over": kernels.VOICE_MIX_RESIDENT_LPAD + 1,
+          "long": 30 * 48000 + 2 * 1024 + 256}
+
+
+@pytest.mark.parametrize("size", sorted(_LPADS))
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_kernel_matches_plain_on_card(cuda, size, offset):
+    """Bit-exact in both regimes of kernels.voice_mix_plan (the buffer
+    staged in shared memory, or streamed from global memory), 16-byte
+    aligned or not: the kernel and the plain version both round the
+    multiply and the add separately, in slot order."""
+    rng = np.random.default_rng(5 + offset)
+    nb, bl, P = 37, 1024, 16
+    L = _LPADS[size] - 2 * bl - 256
+    args = _mix_args(cuda, rng, nb, bl, P, L, offset)
+    plan = kernels.voice_mix_plan(args[0].shape[1], nb, bl)
+    assert plan.resident == (size in ("c5", "under"))
+    _mix_on_card(args, nb, bl)
 
 
 @pytest.mark.parametrize("bl", [100, 256, 1000])
-def test_kernel_ragged_block_lengths(cuda, bl):
-    """Block lengths that are not a multiple of the kernel's frame tile."""
-    rng = np.random.default_rng(bl)
-    nb, P, L = 5, 7, 300
-    padded = torch.from_numpy(
-        rng.normal(size=(2, 2 * bl + L + 256)).astype(np.float32)
-    ).to(cuda)
-    begins = torch.from_numpy(
-        rng.integers(0, L + bl + 1, (nb, P)).astype(np.int32)
-    ).to(cuda)
-    al, ar = (torch.from_numpy(rng.uniform(-1, 1, (nb, P)).astype(np.float32))
-              .to(cuda) for _ in range(2))
-    got = voices.voice_mix_stereo(padded, begins, al, ar, nb, bl)
-    want = voices.voice_mix_stereo_plain(padded, begins, al, ar, nb, bl)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
+@pytest.mark.parametrize("L", [300, kernels.VOICE_MIX_RESIDENT_LPAD])
+@pytest.mark.parametrize("tight", [False, True])
+def test_kernel_ragged_block_lengths(cuda, bl, L, tight):
+    """Block lengths that are not a multiple of the kernel's 256-frame
+    tile, resident and streamed, with slot tables over one 32-slot chunk;
+    `tight`: begins up to lpad - bl, so a ragged last tile's window runs
+    past the buffer's end (make_padded_sample's right pad covers it)."""
+    rng = np.random.default_rng(bl + L + tight)
+    nb, P = 5, 7 if L == 300 else 300
+    padded, begins, al, ar = _mix_args(cuda, rng, nb, bl, P, L)
+    if tight:
+        lpad = padded.shape[1]
+        b = rng.integers(lpad - 2 * bl, lpad - bl + 1, (nb, P))
+        b[0, 0] = lpad - bl
+        begins = torch.from_numpy(b.astype(np.int32)).to(cuda)
+    _mix_on_card((padded, begins, al, ar), nb, bl)
 
 
 def test_small_c5_render_on_card_matches_cpu(cuda, tmp_path):
@@ -177,9 +206,15 @@ def _check_close(got, want, y64, what):
                                err_msg=f"{what}: kernel vs plain")
 
 
-@pytest.mark.parametrize("T,C", [(T, 1) for T in EDGE_T] + [(1025, 4),
-                                                             (67, 1785)])
+# the one-lane tile of kernels.scan_plan for the max-decay: 1792 frames
+MAX_DECAY_EDGE_T = [1791, 1792, 1793, 2 * 1792 + 1]
+
+
+@pytest.mark.parametrize("T,C", [(T, 1) for T in EDGE_T + MAX_DECAY_EDGE_T]
+                         + [(1025, 4), (67, 1785), (4097, 33), (1025, 64)])
 def test_max_decay_kernel_matches_plain_on_card(cuda, T, C):
+    """The tiled kernel at the plan's tile edges, over many tiles, and on
+    wide rows; a second run of the same input is bit-identical."""
     rng = np.random.default_rng(T + 3 * C)
     x = np.abs(rng.normal(size=(T, C))).astype(np.float32)
     x[::977] *= 5.0  # peaks
@@ -191,9 +226,27 @@ def test_max_decay_kernel_matches_plain_on_card(cuda, T, C):
     got = scan.max_decay_scan(*args)
     torch.cuda.synchronize()
     assert scan.max_decay_launches == n0 + 1
+    assert torch.equal(scan.max_decay_scan(*args), got)
     want = scan.max_decay_scan_plain(*args)
     _check_close(got.cpu().numpy(), want.cpu().numpy(),
                  _max_decay64(x, r.astype(np.float64), y0), "max_decay")
+
+
+def test_max_decay_kernel_holds_a_long_slow_decay_on_card(cuda):
+    """A 250 ms release at 48 kHz (r = 0.99992) decaying from one peak
+    over 100,003 frames (56 tiles): every run and every tile multiplies
+    the same r, so a rounding error shared by them would compound; the
+    kernel stays within 1e-5 of max |y| of a float64 recurrence."""
+    rng = np.random.default_rng(8)
+    x = (0.01 * np.abs(rng.normal(size=(100003, 1)))).astype(np.float32)
+    x[5, 0] = 3.0
+    r = np.exp(np.float32(-1.0) / np.float32(250 * 0.001 * 48000)).reshape(1)
+    y0 = np.zeros(1, np.float32)
+    got = scan.max_decay_scan(*(torch.from_numpy(v).to(cuda)
+                                for v in (x, r, y0))).cpu().numpy()
+    y64 = _max_decay64(x, r.astype(np.float64), y0)
+    np.testing.assert_allclose(got, y64, rtol=0,
+                               atol=1e-5 * np.abs(y64).max())
 
 
 def test_max_decay_kernel_propagates_nan_on_card(cuda):
@@ -284,9 +337,9 @@ def _tiled_args(op, T, C, seed, pole=None):
             s.imag.copy()), [u64.real, u64.imag]
 
 
-_TILED = {"affine": (scan.affine_scan, scan.affine_scan_plain, 1),
+_TILED = {"affine": (scan.affine_scan, scan.affine_scan_plain),
           "complex": (scan.complex_affine_scan,
-                      scan.complex_affine_scan_plain, 2)}
+                      scan.complex_affine_scan_plain)}
 
 
 @pytest.mark.parametrize("op", sorted(_TILED))
@@ -298,9 +351,9 @@ def test_tiled_scan_matches_plain_on_card(cuda, op, T, C):
     reverb comb and the delay of c4's feedback lines; against their plain
     versions and float64 (the rules of chip_smoke's scan phases), and two
     runs of the same input bit-identical."""
-    fn, plain, planes = _TILED[op]
+    fn, plain = _TILED[op]
     if T == "ragged":
-        T = 3 * kernels.scan_plan(384000, C, planes).s + 5
+        T = 3 * kernels.scan_plan(384000, C, op).s + 5
     host, y64 = _tiled_args(op, T, C, seed=T + C)
     args = [torch.from_numpy(np.ascontiguousarray(v)).to(cuda) for v in host]
     got = fn(*args)
@@ -321,7 +374,7 @@ def test_tiled_scan_slow_pole_on_card(cuda, op):
     composes the same power of the pole, so an error shared by the tiles
     would compound; the kernel stays within 1e-4 of float64 relative to
     max |y|."""
-    fn, _, _ = _TILED[op]
+    fn, _ = _TILED[op]
     host, y64 = _tiled_args(op, 384000, 4, seed=3, pole=0.9999)
     got = fn(*(torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
                for v in host))

@@ -192,7 +192,9 @@ def _max_decay64(x, r, y0):
     return y
 
 
-@pytest.mark.parametrize("T,C", [(1, 1), (200, 1), (3000, 2)])
+# 1791-1793: the edge of kernels.scan_plan's 1792-frame tile at one lane
+@pytest.mark.parametrize("T,C", [(1, 1), (200, 1), (3000, 2), (1791, 1),
+                                 (1792, 1), (1793, 1)])
 def test_max_decay_scan_plain_matches_reference_and_float64(T, C):
     rng = np.random.default_rng(T + C)
     x = np.abs(rng.normal(size=(T, C))).astype(np.float32)
@@ -279,29 +281,41 @@ def test_complex_affine_scan_plain_matches_reference_and_float64(T, C):
 
 
 # the scans' shapes in a c4 window at 48 kHz: eq3 stage, band-pass,
-# reverb damping, compressor smoothing, longest and shortest comb,
-# longest allpass, delay; and edge shapes
-@pytest.mark.parametrize("T,C,planes", [
-    (384000, 4, 2), (384000, 4, 1), (384000, 2, 1), (384000, 1, 1),
-    (216, 1785, 1), (317, 1215, 1), (1568, 490, 1), (67, 11520, 1),
-    (1, 1, 1), (1, 1, 2), (5, 3, 2), (4097, 33, 2)])
-def test_scan_plan_tiles_cover_the_scan_within_shared_memory(T, C, planes):
+# reverb damping, compressor smoothing and peak follower, longest and
+# shortest comb, longest allpass, delay; and edge shapes, the max-decay's
+# among them (its card tests' wide rows and tile edges)
+@pytest.mark.parametrize("T,C,op", [
+    (384000, 4, "complex"), (384000, 4, "affine"), (384000, 2, "affine"),
+    (384000, 1, "affine"), (384000, 1, "max_decay"), (216, 1785, "affine"),
+    (317, 1215, "affine"), (1568, 490, "affine"), (67, 11520, "affine"),
+    (1, 1, "affine"), (1, 1, "complex"), (5, 3, "complex"),
+    (4097, 33, "complex"), (1, 1, "max_decay"), (1025, 4, "max_decay"),
+    (67, 1785, "max_decay"), (4097, 33, "max_decay"), (1025, 64, "max_decay"),
+    (2 * 1792 + 1, 1, "max_decay")])
+def test_scan_plan_tiles_cover_the_scan_within_shared_memory(T, C, op):
     """kernels.scan_plan, which the tiled kernels take their tiling from:
     the tiles cover [T, C]; a CTA fits 48 KB of shared memory with the
     per-warp totals; runs are odd below 32 lanes (bank-conflict free);
-    one c4 window of the eq3 or band-pass fills the card's 132 SMs; the
+    one c4 window of the eq3 or band-pass fills the card's 132 SMs, and
+    the compressor's one lane spreads over 215 tiles of 1792 frames; the
     delay line is one tile; scratch holds each tile's B per lane."""
-    p = kernels.scan_plan(T, C, planes)
+    p = kernels.scan_plan(T, C, op)
+    planes, total_bytes = kernels.SCAN_OPS[op]
+    assert (planes, total_bytes) == {"affine": (1, 16), "max_decay": (1, 16),
+                                     "complex": (2, 32)}[op]
     assert p.cl >= min(C, 32) and p.cl & (p.cl - 1) == 0 and p.cl <= 32
     assert p.s == (kernels.SCAN_THREADS // p.cl) * p.k
     assert p.tiles == -(-T // p.s) and p.lane_tiles * p.cl >= C
     assert p.smem == kernels.SCAN_THREADS * p.k * 4 * planes
-    totals = 8 * p.cl * (16 if planes == 1 else 32)
-    assert p.smem + totals <= kernels.SCAN_SHARED_BYTES
+    assert p.smem + 8 * p.cl * total_bytes <= kernels.SCAN_SHARED_BYTES
     assert p.cl == 32 or p.k % 2 == 1
     assert p.scratch == (planes * p.tiles * C if p.tiles > 1 else 0)
     if T == 384000 and C == 4:
         assert p.tiles * p.lane_tiles >= 132
+    if (T, C, op) == (384000, 1, "max_decay"):
+        assert (p.cl, p.k, p.s, p.tiles) == (1, 7, 1792, 215)
+    if (T, C, op) == (1025, 4, "max_decay"):
+        assert (p.k, p.tiles) == (17, 1)  # the shortest run of one tile
     if (T, C) == (67, 11520):
         assert p.tiles == 1
 
@@ -320,6 +334,9 @@ def test_kernel_build_key_hashes_the_shared_headers(tmp_path, monkeypatch):
     after = {n: kernels._lib_path(n) for n in kernels.KERNELS}
     assert all(before[n] != after[n] for n in kernels.KERNELS)
     assert after == {n: kernels._lib_path(n) for n in kernels.KERNELS}
+    # the three tiled scans are built on the header
+    for n in ("affine_scan", "max_decay_scan", "complex_scan"):
+        assert '#include "scan_tile.cuh"' in (csrc / f"{n}.cu").read_text()
 
 
 def _biquad64(x, coefs, state):

@@ -14,6 +14,7 @@ from termdaw_tpu.banks.flowwbank import DrumBake
 from termdaw_tpu.graph.bake import MultiCarry, bake_sample_multi
 from termdaw_tpu.ops import pallas_voices as ref
 
+from termdaw_tpu_torch import kernels
 from termdaw_tpu_torch.ops import voices
 
 torch.set_num_threads(1)
@@ -146,6 +147,82 @@ def test_two_sample_concat_buffer():
     np.testing.assert_allclose(got, want, rtol=0, atol=MIX_ATOL)
 
 
+def test_plain_matches_pallas_interpret_above_the_resident_budget():
+    """A padded buffer one frame over kernels.voice_mix_plan's resident
+    budget (a long sample: the card streams it from global memory), with
+    begins at 0 and at the largest in-bounds begin L + bl; small otherwise
+    (3 blocks, 4 slots) to keep interpret mode quick."""
+    rng = np.random.default_rng(6)
+    nb, bl, P = 3, 128, 4
+    L = kernels.VOICE_MIX_RESIDENT_LPAD + 1 - 2 * bl - 256
+    sample = rng.normal(size=(L, 2)).astype(np.float32)
+    padded = np.asarray(ref.make_padded_sample(jnp.asarray(sample), bl))
+    assert not kernels.voice_mix_plan(padded.shape[1], nb, bl).resident
+    begins = rng.integers(0, L + bl + 1, (nb, P)).astype(np.int32)
+    begins[0, 0], begins[1, 0] = 0, L + bl
+    al = rng.uniform(-1, 1, (nb, P)).astype(np.float32)
+    ar = rng.uniform(-1, 1, (nb, P)).astype(np.float32)
+    want, got = _mix_both(padded, begins, al, ar, nb, bl)
+    np.testing.assert_allclose(got, want, rtol=0, atol=MIX_ATOL)
+
+
+def _frames_mixed(plan, nb, bl):
+    """How often the kernel of `plan` writes each frame of [nb, bl]: its
+    warps, each walking the (block, tile) items w, w + (warps of the
+    grid), ..."""
+    T = kernels.VOICE_MIX_TILE
+    tiles = -(-bl // T)
+    count = np.zeros(nb * tiles * T, np.int64)
+    warps = plan.grid * plan.threads // 32
+    for first in range(warps):
+        for w in range(first, plan.items, warps):
+            count[w * T:(w + 1) * T] += 1
+    return count.reshape(nb, tiles * T)[:, :bl]
+
+
+# the buffers of the render paths (c5's one hit, c4's snare, chip_smoke's
+# two-segment concat), the resident budget's edge, a 30 s sample
+_C5, _C4, _SMOKE = 3840 + 2304, 7200 + 2304, 6144 + 2000 + 2304
+
+
+@pytest.mark.parametrize("lpad", [
+    256, _C5, _C4, _SMOKE, kernels.VOICE_MIX_RESIDENT_LPAD,
+    kernels.VOICE_MIX_RESIDENT_LPAD + 1, 30 * 48000 + 2304])
+@pytest.mark.parametrize("nb,bl", [(375, 1024), (3, 100), (1, 1),
+                                   (700, 256)])
+def test_voice_mix_plan_regime_grid_and_shared_memory(lpad, nb, bl):
+    """kernels.voice_mix_plan: resident exactly while the buffer fits the
+    budget (the render paths' buffers do); a CTA's shared memory, tables
+    included, within the 232,448 bytes a block may use and, with what
+    the system keeps, within an SM's 228 KB; at most one CTA an SM,
+    enough warps for one round where 32 an SM suffice, at least 8 warps
+    to copy a staged buffer, no CTA without an item; every frame of every
+    block mixed once."""
+    plan = kernels.voice_mix_plan(lpad, nb, bl)
+    assert plan.resident == (lpad <= kernels.VOICE_MIX_RESIDENT_LPAD)
+    if lpad in (_C5, _C4, _SMOKE):
+        assert plan.resident
+    tiles = -(-bl // kernels.VOICE_MIX_TILE)
+    assert plan.items == nb * tiles
+    # with the slot tables (32 warps x 32 16-byte entries, static) within
+    # the 232,448 bytes a CTA may use, and with the 1 KB the system keeps
+    # per CTA within an SM's 233,472
+    tables = 32 * 32 * 16
+    assert plan.smem + tables <= 232448
+    assert plan.smem + tables + 1024 <= 233472
+    if plan.resident:
+        assert plan.smem == 8 * lpad + 16 <= kernels.VOICE_MIX_RESIDENT_BYTES
+        assert plan.threads >= 256
+    else:
+        assert plan.smem == 0
+    assert 1 <= plan.grid <= kernels.H100_SMS
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    warps = plan.grid * plan.threads // 32
+    assert warps >= min(plan.items, 32 * kernels.H100_SMS)  # one round
+    assert warps - plan.threads // 32 < plan.items  # no CTA without an item
+    np.testing.assert_array_equal(_frames_mixed(plan, nb, bl), 1)
+
+
 def test_cpu_call_does_not_count_a_launch():
     sample, tbl, nb, bl, L = _pallas_fixture(np.random.default_rng(4))
     _, (tb, tv) = _begin_vel_both(tbl, 0, nb, bl, L)
@@ -156,7 +233,7 @@ def test_cpu_call_does_not_count_a_launch():
 
 
 @pytest.mark.parametrize("bad", ["begins_int64", "amp_f64", "shape",
-                                 "noncontig", "device"])
+                                 "noncontig", "device", "short"])
 def test_wrapper_rejects_bad_inputs(bad):
     nb, bl, P = 2, 64, 3
     padded = torch.zeros((2, 3 * bl + 256))
@@ -171,6 +248,8 @@ def test_wrapper_rejects_bad_inputs(bad):
         ar = torch.zeros((nb, P + 1))
     elif bad == "noncontig":
         al = torch.zeros((P, nb)).t()
+    elif bad == "short":  # fewer than 256 frames: no tile's window fits
+        padded = torch.zeros((2, 255))
     else:
         ar = torch.zeros((nb, P), device="meta")
     with pytest.raises((TypeError, ValueError)):
