@@ -8,9 +8,10 @@ the final line:
 
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
 2. build: compiles every kernel (csrc/voice_mix.cu, affine_scan.cu,
-   max_decay_scan.cu, complex_scan.cu) with nvcc for sm_90a, one nvcc
-   process each, all in parallel, and prints each compiled kernel's
-   registers, shared memory and spills (ptxas);
+   max_decay_scan.cu, complex_scan.cu, biquad_seq.cu) with nvcc for
+   sm_90a, one nvcc process each, all in parallel, and prints each
+   compiled kernel's registers, shared memory and spills (ptxas); the
+   exact lane's SASS (cuobjdump) must hold no FFMA;
 3. the voice-mix kernel against its plain PyTorch version on the card at
    the c5 render's shapes (375 blocks of 1024 frames, 16 slots), in both
    regimes of kernels.voice_mix_plan: a two-sample concat buffer staged
@@ -53,7 +54,8 @@ the final line:
 11. timings after one warm-up: render_device wall time (synchronized),
    the median of 5, for c5, c1, c2, c3 and c4; each kernel against its
    plain version (CUDA events per wrapper call); and each kernel's device
-   time per call (torch.profiler, all the kernels a call launches) beside
+   time per call (torch.profiler, all the kernels a call launches; a
+   trace that lost rows is taken again) beside
    its bound (bytes read and written once at 3.35 TB/s, or f32 operations
    at 67 TFLOP/s) and the share of the bound it reaches: the scans at
    every shape c3 and c4 run them at, the max-decay also at [1025, 4],
@@ -61,7 +63,36 @@ the final line:
 12. torch.profiler traces of two c4 renders: the first as it runs
    (device time in all and in each kernel, device kernel launches, device
    busy share of the wall), the second with each effect fenced by
-   synchronizes (the effects' device time).
+   synchronizes (the effects' device time);
+13. the exact biquad lane's kernel (csrc/biquad_seq.cu) against its plain
+   version with the c4 eq3's stage coefficients (lowpass and highpass at
+   the 180 Hz and 4 kHz crossovers, 48 kHz) on a seeded input: bit-exact
+   over two consecutive [48,000, 4] windows, the state carried; at the
+   full [384,000, 4] stage shape bit-exact too, and within 5e-5 of max
+   |y| of a float64 lfilter; device ms per call (between CUDA events:
+   torch.profiler loses some of this kernel's rows) beside its bound, the
+   latency of its serial chain (12 cycles a frame at 1.98 GHz);
+14. c4 with TERMDAW_EXACT_BIQUAD=1 on the card: the render launches the
+   kernel 20 times and the complex scan never; the median of 5 walls;
+   the distance in 16-bit counts to phase 10's default-lane render
+   (gated at 2e-3 of full scale); the project cut to 1 s rendered on the
+   card and on the CPU within one count;
+15. a stream session on c4 with two live streams (full project, cuda):
+   a writer thread feeds an os.pipe with drum and note packets every
+   100 ms for 10 s; a sink that drains in real time captures the audio;
+   the Player is paused after 30 s of wall, since a 1-block window
+   slower than a block keeps tick() catching up for good. Gated: the
+   events were appended, the audio is finite and non-zero after the
+   first event. Printed: blocks rendered, the window sizes tick()
+   picked, underruns, the queued lead, the session's wall and whether
+   the deadline paused it, render_window walls at nb = 1, 4 and 32;
+16. chains: c5 and c3 rendered twice each with chains (the default) and
+   with TERMDAW_PREBAKE=0, the WAVs bit-identical; windows served, host
+   bake ms a render and the median walls each way; then c5 under
+   TERMDAW_VOICE_CAP=2: finite, every voice table at most 2 voices a
+   (block, member);
+17. TERMDAW_PROFILE: one c4 render with it set writes a Chrome trace;
+   the trace's top host ops by self CPU time and the device busy share.
 
 Then the card line, the kernels line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -70,6 +101,7 @@ Then the card line, the kernels line, and as the last line
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -93,10 +125,23 @@ SLOW_POLE, SLOW_HZ = 0.9999, 20.0             # phases 4 and 9's slow poles
 SLOW_DECAY_T = 100003                         # phase 9's long slow decay
 # one H100 SXM, published peaks: HBM3 bytes/s, f32 flop/s
 PEAK_BYTES_S, PEAK_F32_FLOPS = 3.35e12, 67e12
+# the exact lane's latency bound: 3 dependent FP32 operations of 4 cycles
+# a frame at the H100 SXM's 1.98 GHz boost clock
+BIQUAD_CYCLES_A_FRAME, BOOST_HZ = 12, 1.98e9
+BIQUAD_F64_RTOL = 5e-5                        # phase 13, of max |y|
+LANES_RTOL = 2e-3                             # phase 14, of full scale
+STREAM_SECONDS, STREAM_PERIOD_S = 10.0, 0.1   # phase 15's writer
+# phase 15's session is paused at this wall, as a user would stop it: a
+# Player whose 1-block window costs more than a block never leaves its
+# catch-up loop (as in the reference), so the session has no end of its own
+STREAM_DEADLINE_S = 30.0
 # torch.profiler now and then returns a trace without device rows: a
 # trace is taken again up to this many times, and the empty ones counted
-PROFILE_TRIES = 3
+PROFILE_TRIES = 5
 empty_traces = 0
+# a kernel's trace whose device rows are not a whole multiple of its calls
+# lost some rows (seen on biquad_seq: 3 or 4 of 5 calls): taken again too
+short_traces = 0
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -109,8 +154,9 @@ def ptxas_summary(log: str) -> list[str]:
         if m:
             mangled = m.group(1)
             name = next((k for k in ("voice_mix_kernel", "tile_reduce",
-                                     "tile_scan") if k in mangled), mangled)
-            cl = re.search(r"OpELi(\d+)E", mangled)
+                                     "tile_scan", "biquad_seq_kernel")
+                         if k in mangled), mangled)
+            cl = re.search(r"(?:OpE|biquad_seq_kernelI)Li(\d+)E", mangled)
             staged = re.search(r"voice_mix_kernelILb([01])E", mangled)
             name += f"<CL={cl.group(1)}>" if cl else ""
             name += f"<staged={staged.group(1)}>" if staged else ""
@@ -285,8 +331,9 @@ def bound(nbytes: float, flops: float) -> dict:
 
 def device_ms(fn, reps: int = 20) -> float:
     """Device time per call of fn: the CUDA rows of a torch.profiler trace
-    of `reps` calls after a warm-up (all the kernels a call launches)."""
-    global empty_traces
+    of `reps` calls after a warm-up (all the kernels a call launches). A
+    trace whose row count is not a multiple of `reps` is taken again."""
+    global empty_traces, short_traces
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -298,13 +345,16 @@ def device_ms(fn, reps: int = 20) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.device_time_total for e in prof.events()
-                    if e.device_type == cuda_t)
-        if total > 0:
-            return total / 1e3 / reps
-        empty_traces += 1
-    raise RuntimeError(f"chip_smoke: check failed: the profiler saw no "
-                       f"device time in {PROFILE_TRIES} traces")
+        rows = [e.device_time_total for e in prof.events()
+                if e.device_type == cuda_t]
+        if rows and len(rows) % reps == 0:
+            return sum(rows) / 1e3 / reps
+        if rows:
+            short_traces += 1
+        else:
+            empty_traces += 1
+    raise RuntimeError(f"chip_smoke: check failed: the profiler lost "
+                       f"device rows in {PROFILE_TRIES} traces")
 
 
 def timed(fn, plain, nbytes: float, flops: float) -> dict:
@@ -527,6 +577,197 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_event_ms(fn, reps: int) -> float:
+    """Device ms of a long kernel (milliseconds a call): the median gap
+    between CUDA events recorded around each of `reps` back-to-back calls.
+    The host queues a call far faster than the card runs it, so after the
+    first gap the card runs call after call with no host time between."""
+    for _ in range(3):
+        fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for e in ev[1:]:
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
+
+
+def eq3_stage_inputs(T: int, seed: int):
+    """The c4 eq3's stage coefficients over 4 channels (lowpass and
+    highpass at the 180 Hz and 4 kHz crossovers, 48 kHz), [5, 4] f32, a
+    seeded input [T, 4] and a zero state [4, 4]."""
+    from termdaw_tpu_torch.ops.filters import biquad_coefs
+
+    cs = np.asarray([biquad_coefs(k, f, SR) for k, f in (
+        ("lowpass", 180.0), ("highpass", 180.0), ("lowpass", 4000.0),
+        ("highpass", 4000.0))], np.float32).T
+    x = np.random.default_rng(seed).normal(size=(T, 4)).astype(np.float32)
+    return x, cs, np.zeros((4, 4), np.float32)
+
+
+def biquad64(x: np.ndarray, cs: np.ndarray, state: np.ndarray) -> np.ndarray:
+    """The float64 biquad per channel (scipy.signal.lfilter, its initial
+    state from lfiltic of the carried (x1, x2, y1, y2))."""
+    from scipy.signal import lfilter, lfiltic
+
+    y = np.empty(x.shape, np.float64)
+    for c in range(x.shape[1]):
+        b0, b1, b2, a1, a2 = (float(v) for v in cs[:, c])
+        b, a = [b0, b1, b2], [1.0, a1, a2]
+        x1, x2, y1, y2 = (float(v) for v in state[:, c])
+        zi = lfiltic(b, a, y=[y1, y2], x=[x1, x2])
+        y[:, c] = lfilter(b, a, x[:, c].astype(np.float64), zi=zi)[0]
+    return y
+
+
+class DrainSink:
+    """A sink that models a device draining its queue in real time: the
+    queued level falls at the project rate while playing; the queue
+    running dry while playing counts as an underrun. Keeps the audio and
+    the level (ms) seen by each queued chunk."""
+
+    def __init__(self, sr: int) -> None:
+        self.sr = sr
+        self.chunks: list[np.ndarray] = []
+        self.level = 0.0      # frames queued, not yet played
+        self.playing = False
+        self.t_last: float | None = None
+        self.underruns = 0
+        self.leads_ms: list[float] = []
+
+    def _drain(self) -> None:
+        now = time.perf_counter()
+        if self.playing and self.t_last is not None:
+            self.level -= (now - self.t_last) * self.sr
+            if self.level < 0:
+                self.underruns += 1
+                self.level = 0.0
+        self.t_last = now
+
+    def queue_audio(self, interleaved: np.ndarray) -> None:
+        self._drain()
+        self.leads_ms.append(self.level / self.sr * 1e3)
+        self.chunks.append(np.array(interleaved, np.float32))
+        self.level += interleaved.size // 2
+
+    def resume(self) -> None:
+        self._drain()
+        self.playing = True
+
+    def pause(self) -> None:
+        self._drain()
+        self.playing = False
+
+    def clear(self) -> None:
+        self.level = 0.0
+
+    def close(self) -> None:
+        self._drain()
+        self.playing = False
+
+
+def trace_breakdown(path: Path, top: int = 8) -> dict:
+    """A torch.profiler Chrome trace's host ops by self time (each op's
+    duration less its children's, per thread), the device rows' busy
+    share of the traced wall, and their count."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    host = sorted((e for e in events if e.get("cat") in
+                   ("cpu_op", "user_annotation", "python_function")),
+                  key=lambda e: (e.get("tid"), e["ts"], -e["dur"]))
+    self_us: dict[str, float] = {}
+    stack: list[tuple] = []  # (tid, end, name)
+    for e in host:
+        while stack and (stack[-1][0] != e.get("tid")
+                         or stack[-1][1] <= e["ts"]):
+            stack.pop()
+        self_us[e["name"]] = self_us.get(e["name"], 0.0) + e["dur"]
+        if stack:
+            parent = stack[-1][2]
+            self_us[parent] = self_us.get(parent, 0.0) - e["dur"]
+        stack.append((e.get("tid"), e["ts"] + e["dur"], e["name"]))
+    dev = [e for e in events if e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset")]
+    t0 = min(e["ts"] for e in host)
+    t1 = max(e["ts"] + e["dur"] for e in host)
+    busy = sum(e["dur"] for e in dev)
+    return {"wall_ms": (t1 - t0) / 1e3, "device_ms": busy / 1e3,
+            "device_busy_share": busy / (t1 - t0), "device_rows": len(dev),
+            "top_host_self_ms": [
+                [n, us / 1e3] for n, us in sorted(
+                    self_us.items(), key=lambda kv: -kv[1])[:top]]}
+
+
+def stream_session(fixtures, d: Path, device) -> dict:
+    """Phase 15: run_stream_workflow on `device` over the live c4 project
+    in d, fed through an os.pipe by a writer thread (a drum hit every
+    100 ms and a note every 500 ms, each 0.3 s ahead of the wall clock,
+    for STREAM_SECONDS), into a DrainSink; the Player is paused once the
+    session has run STREAM_DEADLINE_S. Returns the sink, the state, the
+    window sizes the Player rendered, the writer's packet count, the
+    session's wall and whether the deadline paused it."""
+    import os
+    import threading
+
+    from termdaw_tpu_torch.engine.player import Player
+    from termdaw_tpu_torch.fileio.packets import encode_events
+    from termdaw_tpu_torch.workflows.stream import run_stream_workflow
+
+    st = fixtures.load_state(d, device)
+    version = st.fb.version
+    sink = DrainSink(SR)
+    sizes: list[int] = []
+    orig = Player._render_queue
+
+    def counted(self, nb):
+        sizes.append(nb)
+        orig(self, nb)
+        if self.playing and (time.perf_counter() - sent["t0"]
+                             > STREAM_DEADLINE_S):
+            sent["paused_at_deadline"] = True
+            self.pause()
+
+    r, w = os.pipe()
+    sent = {"packets": 0, "first_event_s": None,
+            "paused_at_deadline": False, "t0": time.perf_counter()}
+
+    def writer() -> None:
+        t0 = time.perf_counter()
+        k = 0
+        with os.fdopen(w, "wb", buffering=0) as out:
+            while (now := time.perf_counter() - t0) < STREAM_SECONDS:
+                at = np.float32(now + 0.3)
+                blob = encode_events("drums", np.asarray(
+                    [[0.0, at, 38.0, 0.9]], np.float32))
+                if k % 5 == 0:
+                    note = 48 + (k // 5) % 12
+                    blob += encode_events("keys", np.asarray(
+                        [[0.0, at, note, 0.8], [0.0, at + 0.4, note, 0.0]],
+                        np.float32))
+                out.write(blob)
+                sent["packets"] += 1
+                if sent["first_event_s"] is None:
+                    sent["first_event_s"] = float(at)
+                k += 1
+                time.sleep(STREAM_PERIOD_S)
+
+    Player._render_queue = counted
+    try:
+        th = threading.Thread(target=writer, daemon=True)
+        th.start()
+        with os.fdopen(r, "rb", buffering=0) as src:
+            run_stream_workflow(SR, BL, st, sink, input_stream=src,
+                                max_idle_s=1.0)
+        th.join(timeout=30)
+    finally:
+        Player._render_queue = orig
+    sent["wall_s"] = time.perf_counter() - sent.pop("t0")
+    return {"state": st, "sink": sink, "sizes": sizes,
+            "version_before": version, **sent}
+
+
 def main() -> int:
     # 1. environment
     if not torch.cuda.is_available():
@@ -550,7 +791,7 @@ def main() -> int:
 
     from termdaw_tpu_torch import kernels
     from termdaw_tpu_torch.engine.player import Player
-    from termdaw_tpu_torch.ops import scan, voices
+    from termdaw_tpu_torch.ops import filters, scan, voices
     from termdaw_tpu_torch.utils import fixtures
 
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
@@ -558,16 +799,27 @@ def main() -> int:
     def reset_counts():
         voices.launches = scan.launches = 0
         scan.max_decay_launches = scan.complex_launches = 0
+        filters.biquad_seq_launches = 0
 
     # 2. build
     t0 = time.perf_counter()
     libs = kernels.build_all(kernels.KERNELS)
     for name in kernels.KERNELS:
         getattr(kernels, f"{name}_lib")()
+    # the exact lane rounds every multiply and add on its own: no fused
+    # multiply-add may appear in its machine code
+    sass = subprocess.run(
+        [str(Path(kernels.find_nvcc()).parent / "cuobjdump"), "-sass",
+         str(libs["biquad_seq"])], capture_output=True, text=True,
+        timeout=120)
+    check(sass.returncode == 0 and "FMUL" in sass.stdout,
+          f"cuobjdump -sass of biquad_seq failed: {sass.stderr.strip()}")
+    ffma = len(re.findall(r"\bFFMA", sass.stdout))
+    check(ffma == 0, f"biquad_seq's SASS holds {ffma} FFMA")
     emit("build", seconds=time.perf_counter() - t0, ptxas={
         f"termdaw_tpu_torch/csrc/{name}.cu": ptxas_summary(
             lib.with_suffix(".log").read_text())
-        for name, lib in libs.items()})
+        for name, lib in libs.items()}, biquad_seq_sass_ffma=ffma)
 
     # 3. kernel vs plain at c5's shapes, in both regimes
     args = kernel_inputs(cuda)
@@ -854,11 +1106,268 @@ def main() -> int:
              c4_render_device_s=c4_s, c4_median_s=statistics.median(c4_s),
              voice_mix_stereo=mix_t, max_decay_scan=md_t,
              affine_scan=affine_t, complex_affine_scan=complex_t,
-             empty_traces=empty_traces)
+             empty_traces=empty_traces, short_traces=short_traces)
 
         # 12. a profile of one c4 render
         emit("c4_profile", card=card, **profile_render(st4),
              empty_traces=empty_traces)
+
+        # 13. the exact lane's kernel against its plain version
+        x, cs, st0 = eq3_stage_inputs(2 * SR, seed=13)
+        dev_cs = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(cuda)
+                       for c in cs)
+        cpu_cs = tuple(c.cpu() for c in dev_cs)
+        gst, pst = torch.from_numpy(st0).to(cuda), torch.from_numpy(st0)
+        for lo in (0, SR):
+            win = torch.from_numpy(x[lo:lo + SR])
+            n0 = filters.biquad_seq_launches
+            gy, gst = filters.biquad_apply_sequential(win.to(cuda), dev_cs,
+                                                      gst)
+            torch.cuda.synchronize()
+            check(filters.biquad_seq_launches == n0 + 1,
+                  "biquad_seq: no launch counted")
+            py, pst = filters.biquad_seq_plain(win, *cpu_cs, pst)
+            check(bool(torch.isfinite(gy).all()),
+                  "biquad_seq kernel output not finite")
+            check(torch.equal(gy.cpu(), py) and torch.equal(gst.cpu(), pst),
+                  f"biquad_seq kernel vs plain not bit-exact (window at "
+                  f"{lo}, max |diff| {float((gy.cpu() - py).abs().max())})")
+        xf, _, _ = eq3_stage_inputs(SCAN_T, seed=14)
+        bq_args = (torch.from_numpy(xf).to(cuda), dev_cs,
+                   torch.zeros((4, 4), device=cuda))
+        fy, fst = filters.biquad_apply_sequential(*bq_args)
+        torch.cuda.synchronize()
+        y64 = biquad64(xf, cs, np.zeros((4, 4)))
+        scale = float(np.abs(y64).max())
+        err64 = float(np.abs(fy.cpu().numpy() - y64).max())
+        check(err64 <= BIQUAD_F64_RTOL * scale,
+              f"biquad_seq vs float64 max |diff| {err64} > "
+              f"{BIQUAD_F64_RTOL} * {scale}")
+        cpu_args = (bq_args[0].cpu(), *cpu_cs, bq_args[2].cpu())
+        t0 = time.perf_counter()
+        py, pst = filters.biquad_seq_plain(*cpu_args)
+        bq_plain_ms = (time.perf_counter() - t0) * 1e3
+        bq_err = float((fy.cpu() - py).abs().max())
+        check(torch.equal(fy.cpu(), py) and torch.equal(fst.cpu(), pst),
+              f"biquad_seq kernel vs plain at [{SCAN_T}, 4] not bit-exact "
+              f"(max |diff| {bq_err})")
+        # torch.profiler loses rows of this kernel's traces (3 or 4 of 5
+        # calls), so its device time is taken between CUDA events
+        bq_ms = kernel_event_ms(
+            lambda: filters.biquad_apply_sequential(*bq_args), reps=5)
+        # the recurrence is serial by contract, so its operations cannot
+        # go faster than their dependent chain: the operations' term is
+        # that chain at FP32 latency, far above bytes or peak-rate flops
+        latency_ms = SCAN_T * BIQUAD_CYCLES_A_FRAME / BOOST_HZ * 1e3
+        bq_bound = bound(2 * SCAN_T * 4 * 4, 9 * SCAN_T * 4)
+        if latency_ms > bq_bound["bound_ms"]:
+            bq_bound = {"bound_ms": latency_ms, "bound_by": "operations"}
+        bq_t = {"ms": bq_ms, "call_ms": event_ms(
+                    lambda: filters.biquad_apply_sequential(*bq_args), 5),
+                "plain_ms": bq_plain_ms, **bq_bound}
+        emit("biquad_seq_vs_plain", card=card, windows=[SR, SR], C=4,
+             bit_exact=True, T=SCAN_T, kernel_vs_plain=bq_err,
+             max_abs_y=scale, kernel_vs_f64=err64,
+             kernel_vs_f64_rel=err64 / scale, rtol_f64=BIQUAD_F64_RTOL,
+             latency_bound_ms=latency_ms,
+             latency_share=latency_ms / bq_ms, short_traces=short_traces,
+             **bq_t)
+        per_kernel["biquad_seq"] = bq_t
+
+        # 14. c4 on the exact lane
+        os.environ["TERMDAW_EXACT_BIQUAD"] = "1"
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            st4x, gpu4x, rate4x = render_wav(fixtures, d4, cuda, b"",
+                                             d4 / "outp.wav")
+            c4x_wall = time.perf_counter() - t0
+            bq_launches = filters.biquad_seq_launches
+            c4x_counts = {"biquad_seq": bq_launches,
+                          "complex_scan": scan.complex_launches}
+            check(st4x.compiled.exact_biquad, "the flag was not read")
+            check(bq_launches == 20, f"the exact-lane c4 render launched "
+                  f"biquad_seq {bq_launches} times, not 20")
+            check(scan.complex_launches == 0, "the exact-lane c4 render "
+                  "launched the complex scan")
+            check(rate4x == 44100 and gpu4x.shape == gpu4.shape,
+                  "exact-lane c4 WAV format")
+            lanes_diff = int(np.abs(gpu4x - gpu4).max())
+            check(lanes_diff <= LANES_RTOL * 2 ** 15,
+                  f"exact vs parallel lane {lanes_diff} counts > "
+                  f"{LANES_RTOL} of full scale")
+            c4x_s = wall_render(st4x, 5)
+            d4s = tmp / "c4_1s"
+            fixtures.write_c4_project(d4s, 1.0, SR, BL, render_sr=44100,
+                                      bd=16)
+            _, gpu1s, r1s = render_wav(fixtures, d4s, cuda, b"",
+                                       d4s / "outp.wav")
+            _, cpu1s, _ = render_wav(fixtures, d4s, cpu, b"",
+                                     d4s / "outp.wav")
+            cut = compare("c4 1 s exact lane", gpu1s, cpu1s, 16, r1s, 44100,
+                          gpu1s.shape[0])
+            check(cut["max_abs_diff"] <= 1, "c4 1 s exact lane: GPU vs CPU "
+                  "more than one count apart")
+        finally:
+            del os.environ["TERMDAW_EXACT_BIQUAD"]
+        emit("c4_exact_lane", card=card, launches=c4x_counts,
+             first_render_wall_s=c4x_wall, render_device_s=c4x_s,
+             median_s=statistics.median(c4x_s),
+             default_lane_median_s=statistics.median(c4_s),
+             lanes_max_abs_diff_counts=lanes_diff,
+             lanes_bound_counts=LANES_RTOL * 2 ** 15, cut_1s=cut)
+
+        # 15. a stream session on c4
+        d4l = tmp / "c4_live"
+        fixtures.write_c4_project(d4l, SECONDS, SR, BL, render_sr=44100,
+                                  bd=16, live=True)
+        reset_counts()
+        sess = stream_session(fixtures, d4l, cuda)
+        sess_launches = {"voice_mix": voices.launches,
+                         "affine_scan": scan.launches,
+                         "max_decay_scan": scan.max_decay_launches,
+                         "complex_scan": scan.complex_launches}
+        sst, sink = sess["state"], sess["sink"]
+        audio = np.concatenate(sink.chunks)
+        first = 2 * int(sess["first_event_s"] * SR)
+        check(sess["packets"] > 0 and
+              sst.fb.version > sess["version_before"],
+              "the stream session appended no events")
+        check(bool(np.isfinite(audio).all()), "stream audio not finite")
+        check(audio.size > first and float(np.abs(audio[first:]).max()) > 0,
+              "stream audio silent after the first event")
+        hist = {str(n): sess["sizes"].count(n)
+                for n in sorted(set(sess["sizes"]))}
+        nb_walls = {}
+        for nb in (1, 4, 32):
+            walls = []
+            for _ in range(5):
+                sst.fb.set_time(sst.compiled.get_time())
+                t0 = time.perf_counter()
+                sst.compiled.render_window(sst.fb, nb)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                sst.fb.advance_blocks(nb)
+            nb_walls[str(nb)] = statistics.median(walls)
+        emit("stream_session", card=card, project="c4 + live streams",
+             seconds=STREAM_SECONDS, packets=sess["packets"],
+             session_wall_s=sess["wall_s"],
+             paused_at_deadline=sess["paused_at_deadline"],
+             blocks_rendered=sum(sess["sizes"]), window_sizes=hist,
+             underruns=sink.underruns,
+             min_lead_ms=min(sink.leads_ms),
+             median_lead_ms=statistics.median(sink.leads_ms),
+             block_ms=BL / SR * 1e3,
+             render_window_ms_median={"nb": nb_walls},
+             launches=sess_launches)
+
+        # 16. chains against live bakes, then TERMDAW_VOICE_CAP
+        def bake_timed(st):
+            """Wrap the graph's host bake with a clock: returns the
+            accumulator (ms, calls)."""
+            acc = {"ms": 0.0, "calls": 0}
+            orig = st.compiled._bake_all
+
+            def timed_bake(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return orig(*a, **k)
+                finally:
+                    acc["ms"] += (time.perf_counter() - t0) * 1e3
+                    acc["calls"] += 1
+            st.compiled._bake_all = timed_bake
+            return acc
+
+        chains = {}
+        for cfg, d, pk, wav in (
+                ("c5", d5, packets, d5 / "mix.wav"),
+                ("c3", tmp / "c3", b"", tmp / "c3" / "outp.wav")):
+            out = {}
+            for mode in ("chains", "live"):
+                if mode == "live":
+                    os.environ["TERMDAW_PREBAKE"] = "0"
+                try:
+                    st = fixtures.load_state(d, cuda, pk)
+                    ints = []
+                    for _ in range(2):
+                        st.render()
+                        torch.cuda.synchronize()
+                        ints.append(fixtures.read_wav_ints(wav)[0])
+                    cg = st.compiled
+                    check(cg._prebake_used <= cg._prebake_budget,
+                          f"{cfg}: chain bytes over the budget")
+                    acc = bake_timed(st)
+                    walls = wall_render(st, 5)
+                finally:
+                    os.environ.pop("TERMDAW_PREBAKE", None)
+                out[mode] = {"ints": ints, "served_windows": cg.served_windows,
+                             "live_bakes": cg.live_bakes,
+                             "chain_bytes": cg._prebake_used,
+                             "host_bake_ms_a_render": acc["ms"] / 6,
+                             "median_s": statistics.median(walls),
+                             "render_device_s": walls}
+            for i in range(2):
+                check(np.array_equal(out["chains"]["ints"][i],
+                                     out["live"]["ints"][i]),
+                      f"{cfg} render {i + 1}: chains vs live not "
+                      f"bit-identical")
+            check(out["chains"]["served_windows"] > 0 and
+                  out["live"]["served_windows"] == 0,
+                  f"{cfg}: chains served {out['chains']['served_windows']}"
+                  f", live {out['live']['served_windows']}")
+            for m in out.values():
+                del m["ints"]
+            chains[cfg] = {"bit_identical": True, **out}
+        os.environ["TERMDAW_VOICE_CAP"] = "2"
+        try:
+            stc = fixtures.load_state(d5, cuda, packets)
+            stc.fb.set_time(0)
+            cg = stc.compiled
+            cg.seed_caps(stc.fb, stc.cs, C5_NB)
+            bakes, _ = cg._bake_all(stc.fb, 0, C5_NB)
+            worst = 0
+            for k, tbl in bakes.items():
+                if k.startswith("fused"):
+                    b, m = tbl["begins"], tbl["member"]
+                    for kb in range(b.shape[0]):
+                        live = b[kb] > 0
+                        if live.any():
+                            worst = max(worst, int(np.bincount(
+                                m[kb][live]).max()))
+            stc.render()
+            torch.cuda.synchronize()
+            capped, _ = fixtures.read_wav_ints(d5 / "mix.wav")
+        finally:
+            del os.environ["TERMDAW_VOICE_CAP"]
+        p_caps = [c["p"] for c in cg.bake_caps.values() if "p" in c]
+        check(cg.voice_cap == 2 and worst <= 2 and all(p <= 2 for p in
+                                                       p_caps),
+              f"voice cap: {worst} voices a (block, member), p caps "
+              f"{p_caps}")
+        check(capped.size == gpu5.size and int(np.abs(capped).max()) > 0,
+              "the voice-capped c5 render is empty")
+        emit("chains", card=card, **chains,
+             voice_cap={"cap": 2, "max_voices_a_block_member": worst,
+                        "p_caps": p_caps, "finite": True})
+
+        # 17. TERMDAW_PROFILE
+        from termdaw_tpu_torch.utils import prof
+
+        with tempfile.TemporaryDirectory() as pdir:
+            prof.PROFILE_DIR = pdir
+            try:
+                t0 = time.perf_counter()
+                st4.render()
+                torch.cuda.synchronize()
+                p_wall = time.perf_counter() - t0
+            finally:
+                prof.PROFILE_DIR = ""
+            traces = sorted(Path(pdir).glob("render-*.json"))
+            check(len(traces) == 1 and traces[0].stat().st_size > 0,
+                  f"TERMDAW_PROFILE wrote {len(traces)} traces")
+            emit("profile_env", card=card, trace_bytes=traces[0].stat().
+                 st_size, render_wall_s=p_wall,
+                 **trace_breakdown(traces[0]))
 
     print(card, flush=True)
     rows = (
@@ -871,6 +1380,10 @@ def main() -> int:
         ("complex_affine_scan", "complex_scan",
          "termdaw_tpu/ops/filters.py:316", c4_counts["complex_scan"],
          max(cres[p]["kernel_vs_plain"] for p in ("re", "im"))),
+        # the exact lane's path is phase 14's flag-on c4 render; its error
+        # is phase 13's at the eq3 stage shape [384,000, 4]
+        ("biquad_seq", "biquad_seq", "termdaw_tpu/ops/filters.py:384",
+         bq_launches, bq_err),
     )
     print(json.dumps({"kernels": [{
         "name": name,
@@ -884,7 +1397,7 @@ def main() -> int:
         "bound_ms": per_kernel[name]["bound_ms"],
         "bound_by": per_kernel[name]["bound_by"],
         # no single PyTorch call computes a first-order recurrence, a
-        # max-decay scan or the voice mix
+        # max-decay scan, the voice mix or a biquad
         "library_ms": None,
     } for name, src, replaces, n, err in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

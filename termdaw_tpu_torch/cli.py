@@ -4,13 +4,16 @@ Counterpart of termdaw_tpu/cli.py (reference main.rs:38-135): reads
 <wdir>/project.toml, prints the banner, builds the State on the asked
 device (default `cuda`; an unavailable device is an error, never a
 fallback), runs the initial refresh, opens the audio sink and runs the
-port's manual workflow (workflows/ui.py: render, normalize, play and the
-time controls). The stream workflow is not ported yet.
+configured workflow: the manual one (workflows/ui.py: render, normalize,
+play and the time controls) or the stream one (workflows/stream.py: floww
+packets on stdin; TERMDAW_STREAM_IDLE=<seconds> ends it after that long
+without input).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from pathlib import Path
 
@@ -20,6 +23,7 @@ from .utils.term import DEFAULT, BLUE, RED
 
 from .device import resolve_device
 from .engine.state import State
+from .workflows.stream import run_stream_workflow
 from .workflows.ui import run_ui_workflow
 
 
@@ -51,11 +55,6 @@ def main(argv: list[str] | None = None) -> int:
         f'{BLUE}"{config.settings.main}"{DEFAULT} \n\tdevice = '
         f"{BLUE}{device}{DEFAULT}"
     )
-    if config.settings.workflow != WorkFlow.MANUAL:
-        print(f"{RED}Error: the stream workflow is not yet ported to "
-              f"termdaw_tpu_torch.{DEFAULT}")
-        return 1
-
     # build-on-first-run assets: a project dir may ship a make_assets.py
     # that synthesizes its fixtures (idempotent by contract)
     gen = Path(wdir) / "make_assets.py"
@@ -76,7 +75,12 @@ def main(argv: list[str] | None = None) -> int:
     state = State(config, wdir, device=device)
     state.refresh()
     sink = make_sink(proj_sr)
-    run_ui_workflow(proj_sr, config.settings.buffer_length, state, sink)
+    if config.settings.workflow == WorkFlow.MANUAL:
+        run_ui_workflow(proj_sr, config.settings.buffer_length, state, sink)
+    else:
+        idle = os.environ.get("TERMDAW_STREAM_IDLE")
+        run_stream_workflow(proj_sr, config.settings.buffer_length, state,
+                            sink, max_idle_s=float(idle) if idle else None)
     return 0
 
 

@@ -2,9 +2,10 @@
 
 Port of termdaw_tpu/engine/player.py (reference ui_workflow.rs:195-211),
 with the same pacing, prebuffer, lead, catch-up windows and seek/stop
-semantics. What differs: the window audio lives on the render device, so
-it is copied to the host (`.cpu().numpy()`) before the sink takes it, and
-the window size comes from the port's engine/state.py.
+semantics, and `resync_fb_each_block` for the stream workflow. What
+differs: the window audio lives on the render device, so it is copied to
+the host (`.cpu().numpy()`) before the sink takes it, and the window size
+comes from the port's engine/state.py.
 """
 
 from __future__ import annotations
@@ -23,6 +24,10 @@ class Player:
         self.playing = False
         self.since = time.monotonic()
         self.millis_generated = 0.0
+        # the stream workflow turns this on: each tick window re-aligns the
+        # floww cursor to the graph time, since a feed may have trimmed
+        # and appended the streams under it (reference player.py:29)
+        self.resync_fb_each_block = False
 
     # blocks rendered and queued before the wall clock starts: absorbs
     # per-window render latency spikes so the deficit stays bounded
@@ -103,6 +108,8 @@ class Player:
                 break
             want = max(1, int(deficit_ms / block_ms) + 1)
             nb = next(w for w in self._WINDOWS if w <= want)
+            if self.resync_fb_each_block:
+                self.state.fb.set_time(self.state.compiled.get_time())
             self._render_queue(nb)
             self.millis_generated += nb * block_ms
             rendered += nb

@@ -8,11 +8,11 @@ graph rebuild) is carried over unchanged; what differs:
   nothing falls back to another device;
 * the compile step builds the port's CompiledGraph, which renders every
   vertex kind, the native effects (engine/plugins.py, ops/fx.py) among
-  them; a graph the port cannot build yet (an eq3 with
-  TERMDAW_EXACT_BIQUAD=1) aborts the refresh with a "not yet ported"
-  message;
+  them; the replaced graph's chains are released first and caps stay
+  sticky per project dir (`cap_scope`), as in the reference;
 * there is no backend guard and no mesh: renders run on one device, in
-  windows of `render_chunk_blocks(cs)` blocks;
+  windows of `render_chunk_blocks(cs)` blocks, traced into
+  TERMDAW_PROFILE's dir when it is set (utils/prof.device_trace);
 * `render_device` returns device int tensors, which `render` copies to
   the host for the WAV writer.
 
@@ -34,7 +34,7 @@ from ..config import Config
 from ..fileio.wav import WavWriter
 from ..fileio.wavetable import WaveTable, parse_wavetable_from_buffer
 from ..lua import LuaRuntime, LuaError, LuaTable
-from ..utils.prof import span
+from ..utils.prof import device_trace, span
 from ..utils.term import DEFAULT, BLUE, YELLOW, RED, GREEN
 
 from ..banks import SampleBank, FlowwBank, BufferBank, SampleLoadMethod
@@ -495,14 +495,15 @@ class State:
             raise RefreshAbort
 
         # ---- build the window program ---------------------------------------
-        try:
-            self.compiled = CompiledGraph(
-                self.g, self.sb, bl, device=self.device,
-                wavetables=wavetables, plugin_host=self.host,
-            )
-        except NotImplementedError as e:
-            print(f"{RED}TermDaw: {e}{DEFAULT}")
-            raise RefreshAbort from None
+        # the replaced graph's chains are pure cache: they must not keep
+        # holding device memory
+        if self.compiled is not None:
+            self.compiled.release_chains()
+        self.compiled = CompiledGraph(
+            self.g, self.sb, bl, device=self.device,
+            wavetables=wavetables, plugin_host=self.host,
+            cap_scope=str(self.wdir),
+        )
         self.compiled.reset_normalize_vertices()
         print(f"{GREEN}Ok: refreshed.{DEFAULT}")
         self.loaded = True
@@ -565,7 +566,7 @@ class State:
         # repeated renders behave identically
         self.fb.set_time(cg.get_time())
 
-        with span("render windows"):
+        with span("render windows"), device_trace("render"):
             chunks = self.render_device()
 
         writer = WavWriter(

@@ -2,28 +2,38 @@
 
 Port of termdaw_tpu/graph/compile.py. The host logic is carried over
 unchanged: bake-table packing and sticky caps (`_pack_bakes`,
-`_caps_from_table`, `_merge_caps`), the carry classes, `seed_caps` pass 1,
-the SampleMulti bake with fused groups (`_bake_all`, `_group_pool`,
-`_bake_fused_group`, `_fused_member_vecs`, `_merge_group`), time control
-and the normalize resets. The device side runs eagerly in PyTorch on an
-explicit device instead of as a jitted XLA program:
+`_caps_from_table`, `_merge_caps`, `_CAP_HWM` scoped by `cap_scope`),
+TERMDAW_VOICE_CAP's oldest-voice steal, the carry classes and their
+freshness index (`_FRESH_CARRIES`, `_unfresh`), `seed_caps` with its
+chain-storing pass 2, the prebaked and recorded chains
+(`_prebake_take`, `_record_window`, `release_chains`), the SampleMulti
+bake with fused groups (`_bake_all`, `_group_pool`, `_bake_fused_group`,
+`_fused_member_vecs`, `_merge_group`), time control and the normalize
+resets. The device side runs eagerly in PyTorch on an explicit device
+instead of as a jitted XLA program:
 
 * each sample is uploaded once at build and padded (and, for a fused
   group over several samples, concatenated) on the device; each window's
   bake tables are two uploads (one int32, one float32 buffer) that
   `_unpack_bakes` slices;
-* `render_window` live-bakes every window (the reference's
-  TERMDAW_PREBAKE=0 semantics: no prebaked or recorded chains);
+* a chain window keeps those two uploaded buffers, its layout and its
+  sparse carry delta: serving it is `_unpack_bakes` over the stored
+  tensors, with no host bake and no upload, so a served render is
+  bit-identical to a live one. TERMDAW_PREBAKE (default 1) and
+  TERMDAW_PREBAKE_MB (default 256, counted in device bytes) are read at
+  build. The port always fuses, so the reference's per-chain `fused` key
+  is dropped. Pass 2 keeps a window only if its bytes fit the budget
+  (the reference keeps the window that crosses it);
 * `_program` has an arm for every vertex kind. The PLUGINFX arm (the
   native effects, ops/fx.py) takes its traced params from `_pack_fx`
   (one f32 upload per PluginHost change) and its wet gate from the host:
   with wet < 1e-4 the input passes and the `.fx` state is left as it was,
   without running the effect (the reference's `jnp.where` leaf by leaf
   gives the same values);
-* TERMDAW_EXACT_BIQUAD=1, read once at build as the reference does, makes
-  the build of a graph with a biquad effect raise NotImplementedError:
-  the exact sequential biquad lane is not ported, and the parallel lane
-  is never substituted for it;
+* TERMDAW_EXACT_BIQUAD=1 is read once at build, as the reference does,
+  and every window renders under `filters.exact_biquad_scope` of that
+  value, so the biquads run the exact sequential lane
+  (`filters.biquad_apply_sequential`) or the parallel one;
 * the frame -> seconds table (`time_table`, a correctly rounded f32
   division on the host) is uploaded once per size on the graph's device
   and sliced per window, for the synths' `time2d` and every envelope's
@@ -41,6 +51,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 from dataclasses import dataclass, replace
 from typing import Any
 
@@ -103,6 +114,10 @@ def _unpack_bakes(ints_buf: torch.Tensor, floats_buf: torch.Tensor, layout):
     return bakes
 
 
+def _nbytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 # which vertex kinds carry host-side bake state, and their carry class
 _CARRY_CLASSES: dict[str, type] = {
     G.SAMPLEMULTI: B.MultiCarry,
@@ -112,6 +127,30 @@ _CARRY_CLASSES: dict[str, type] = {
     G.SAMPSYN: B.NotesCarry,
     G.ADSR: B.AdsrCarry,
 }
+
+# each kind's fresh carry, compared against and never handed out; a carry
+# of a kind missing here classifies unfresh forever (fail closed: no chain
+# serves it)
+_FRESH_CARRIES = {k: cls() for k, cls in _CARRY_CLASSES.items()}
+
+# sticky bake-table caps across refreshes, keyed by (cap scope, vertex
+# name, kind): a refresh that keeps a vertex keeps its table layouts
+_CAP_HWM: dict[tuple, dict[str, int]] = {}
+
+
+def _copy_carry(c):
+    """A stored chain's own copy of a carry (carries are immutable values:
+    every engine change rebinds, so this is defence in depth); unknown
+    kinds are deep-copied."""
+    if isinstance(c, B.MultiCarry):
+        return B.MultiCarry(list(c.voices))
+    if isinstance(c, B.SineCarry):
+        return B.SineCarry(list(c.notes))
+    if isinstance(c, B.NotesCarry):
+        return B.NotesCarry([replace(n) for n in c.notes])
+    if isinstance(c, (B.LerpCarry, B.AdsrCarry)):
+        return replace(c)
+    return copy.deepcopy(c)
 
 
 def _caps_from_table(kind: str, tbl: dict) -> dict[str, int]:
@@ -207,11 +246,15 @@ class CompiledGraph:
         device: torch.device,
         wavetables: dict[int, Any] | None = None,  # vertex -> WaveTable
         plugin_host=None,  # engine.plugins.PluginHost, for effect vertices
+        cap_scope: str = "",
     ) -> None:
         self.graph = graph
         self.bl = bl
         self.sr = sr = graph.sr
         self.device = torch.device(device)
+        # caps stay sticky across refreshes of one project (its working
+        # dir), not across unrelated projects built in one process
+        self.cap_scope = cap_scope
         self.order = graph.topo_order()
         self.in_edges = [list(e) for e in graph.in_edges]
         self.output = graph.output_vertex
@@ -302,16 +345,9 @@ class CompiledGraph:
                     plug.effect, plugin_host.param_values(p["plugin_index"])
                 ).items()))
             self.statics[vi] = _VertexStatic(**kw)
-        # read once at build (reference compile.py:297)
-        if filters.exact_biquad_env():
-            for vi in self.order:
-                if self.statics[vi].fx_kind in fx.BIQUAD_EFFECTS:
-                    raise NotImplementedError(
-                        f'vertex "{graph.names[vi]}": the exact biquad lane '
-                        f"(TERMDAW_EXACT_BIQUAD=1) is not yet ported to "
-                        f"termdaw_tpu_torch; unset it to render "
-                        f"{self.statics[vi].fx_kind} with the parallel lane"
-                    )
+        # read once at build (reference compile.py:297); every window
+        # renders under exact_biquad_scope of it
+        self.exact_biquad = filters.exact_biquad_env()
         kinds = {st.kind for st in self.statics.values()}
         self._has_fx = G.PLUGINFX in kinds
         self._uses_frames = bool(kinds.intersection(_FRAME_KINDS))
@@ -388,11 +424,44 @@ class CompiledGraph:
                 )
             elif st.kind in _CARRY_CLASSES:
                 self.carries[vi] = _CARRY_CLASSES[st.kind]()
+        # freshness index: vi is in _unfresh iff carries[vi] differs from
+        # its kind's fresh carry; kept exact at every carry assignment
+        self._unfresh: set[int] = set()
+        self._rebuild_unfresh()
+        self._lerp_vis = tuple(vi for vi in self.order
+                               if self.statics[vi].kind == G.SAMPLELERP)
 
-        # per-vertex bake-table caps: tables pad to these, raised by
-        # seed_caps()'s walk of the full schedule and on overflow
+        # per-vertex bake-table caps: tables pad to these, seeded from
+        # _CAP_HWM, raised by seed_caps()'s walk of the full schedule and
+        # on overflow. TERMDAW_VOICE_CAP=n instead hard-caps per-block
+        # polyphony with oldest-voice steal (reference compile.py:494-513)
+        vc = os.environ.get("TERMDAW_VOICE_CAP", "")
+        self.voice_cap = int(vc) if vc.isdigit() and int(vc) > 0 else None
         self.bake_caps: dict[str, dict[str, int]] = {}
+        for vi in self.order:
+            hw = _CAP_HWM.get((cap_scope, graph.names[vi],
+                               self.statics[vi].kind))
+            if hw:
+                self.bake_caps[str(vi)] = dict(hw)
+        for c in self.fused_groups:
+            hw = _CAP_HWM.get((cap_scope, graph.names[c], "fused"))
+            if hw:
+                self.bake_caps[f"fused{c}"] = dict(hw)
         self._seeded_sigs: set[tuple] = set()
+
+        # the prebaked chain (seed_caps pass 2) and recorded chains, served
+        # by render_window for an unchanged schedule and carry lineage
+        self._prebake_on = os.environ.get("TERMDAW_PREBAKE", "1") == "1"
+        self._prebake_budget = float(
+            os.environ.get("TERMDAW_PREBAKE_MB", "256")) * 1e6
+        self._prebaked: dict | None = None
+        self._recorded: list[dict] = []
+        self._rec_active: dict | None = None
+        self._prebake_used = 0
+        # counts for measurement: windows served from a chain, and host
+        # bakes of render windows (seed_caps' walks are not counted)
+        self.served_windows = 0
+        self.live_bakes = 0
         # per-fused-group pooled event arrays, keyed by FlowwBank version
         self._pool_cache: dict[int, tuple] = {}
         # per-(consumer, member) processed event arrays, keyed by the
@@ -415,16 +484,30 @@ class CompiledGraph:
             ).to(self.device)
         return self._ttab
 
-    def _record_caps(self, key: str, kind: str, tbl) -> None:
-        _merge_caps(self.bake_caps.setdefault(key, {}),
-                    _caps_from_table(kind, tbl))
+    def _record_caps(self, key: str, name_key: tuple, kind: str,
+                     tbl) -> None:
+        caps = self.bake_caps.setdefault(key, {})
+        _merge_caps(caps, _caps_from_table(kind, tbl))
+        if self.voice_cap is not None and "p" in caps:
+            caps["p"] = min(caps["p"], self.voice_cap)
+        _CAP_HWM[name_key] = dict(caps)
+
+    def _upload(self, bakes):
+        """The packed bake buffers of a window, uploaded to the graph's
+        device: (ints, floats, layout)."""
+        ints_buf, floats_buf, layout = _pack_bakes(bakes)
+        return (torch.from_numpy(ints_buf).to(self.device),
+                torch.from_numpy(floats_buf).to(self.device), layout)
 
     def seed_caps(self, fb: FlowwBank, total_blocks: int, step: int) -> None:
         """Pre-bake the full known event schedule over the render window
         grid and pin every bake-table cap at the observed maxima, so every
-        window of the render gets one table layout (the reference's
-        seed_caps pass 1). Host numpy, proportional to event count;
-        idempotent; leaves graph and floww state untouched."""
+        window of the render gets one table layout (pass 1). Pass 2 (unless
+        TERMDAW_PREBAKE=0) bakes the same grid again
+        with the pinned caps and stores each window's uploaded buffers and
+        carry delta as the prebaked chain that render_window serves, as
+        far as the byte budget reaches. Host numpy, proportional to event
+        count; idempotent; leaves graph and floww state untouched."""
         if total_blocks <= 0 or not self.carries:
             return
         sig = (fb.uid, fb.version, total_blocks, step)
@@ -433,10 +516,8 @@ class CompiledGraph:
         saved_frame = fb.frame
         fb.set_time(0)
         try:
-            carries = {
-                vi: _CARRY_CLASSES[self.statics[vi].kind]()
-                for vi in self.carries
-            }
+            carries = {vi: _CARRY_CLASSES[self.statics[vi].kind]()
+                       for vi in self.carries}
             t, left = 0, total_blocks
             while left > 0:
                 nb = min(left, step)
@@ -445,11 +526,211 @@ class CompiledGraph:
                 fb.advance_blocks(nb)
                 t += nb * self.bl
                 left -= nb
+            if self._prebake_on:
+                self._prebake_chain(fb, total_blocks, step)
         finally:
             # an interrupt mid-seed must not leave the bank's cursor
             # desynced from graph time
             fb.set_time(saved_frame)
         self._seeded_sigs.add(sig)
+
+    def _prebake_chain(self, fb: FlowwBank, total_blocks: int,
+                       step: int) -> None:
+        """seed_caps pass 2 (reference compile.py:641-694): from fresh
+        carries, bake the grid with the pinned caps and keep each window's
+        uploaded buffers, layout and sparse carry delta. A window is kept,
+        and its bytes counted, only if they fit the budget shared with the
+        recorded chains; the first that does not fit ends the chain."""
+        fb.set_time(0)
+        carries = {vi: _CARRY_CLASSES[self.statics[vi].kind]()
+                   for vi in self.carries}
+        # release the old seed chain's share before building its successor
+        if self._prebaked is not None:
+            self._prebake_used -= self._prebaked["bytes"]
+            self._prebaked = None
+        index: dict[tuple, int] = {}
+        wins: list[tuple] = []
+        t, left, used = 0, total_blocks, 0
+        while left > 0:
+            nb = min(left, step)
+            bakes, nc = self._bake_all(fb, t, nb, carries=carries)
+            ints, floats, layout = self._upload(bakes)
+            nbytes = _nbytes(ints, floats)
+            if self._prebake_used + used + nbytes > self._prebake_budget:
+                break
+            used += nbytes
+            index[(t, fb.frame, nb)] = len(wins)
+            # the carry delta against the window's start state: lineage
+            # guarantees the live carries equal that state at serve time
+            delta = {vi: c for vi, c in nc.items() if c != carries.get(vi)}
+            wins.append((ints, floats, layout, delta,
+                         *self._classify_delta(delta)))
+            carries = dict(carries)
+            carries.update(nc)
+            fb.advance_blocks(nb)
+            t += nb * self.bl
+            left -= nb
+        self._prebake_used += used
+        self._prebaked = {"bank": (fb.uid, fb.version), "index": index,
+                          "wins": wins, "expect": None, "bytes": used}
+
+    # -- the freshness index and the chains (reference compile.py:702-913)
+    def _classify_carry(self, vi: int, c) -> None:
+        """Keep _unfresh exact at an assignment of carries[vi]; a kind
+        missing from _FRESH_CARRIES classifies unfresh forever."""
+        f = _FRESH_CARRIES.get(self.statics[vi].kind)
+        if f is None or c != f:
+            self._unfresh.add(vi)
+        else:
+            self._unfresh.discard(vi)
+
+    def _rebuild_unfresh(self) -> None:
+        self._unfresh.clear()
+        for vi, c in self.carries.items():
+            self._classify_carry(vi, c)
+
+    def _classify_delta(self, delta: dict) -> tuple:
+        """A stored carry delta's (fresh set, unfresh set, copy-on-serve
+        set), computed when the chain is built so serving applies it with
+        set operations."""
+        fresh, unfresh, copies = set(), set(), set()
+        for vi, c in delta.items():
+            f = _FRESH_CARRIES.get(self.statics[vi].kind)
+            if f is not None and c == f:
+                fresh.add(vi)
+            else:
+                unfresh.add(vi)
+            if not isinstance(c, (B.MultiCarry, B.SineCarry, B.LerpCarry,
+                                  B.AdsrCarry, B.NotesCarry)):
+                copies.add(vi)  # unknown kinds only
+        return frozenset(fresh), frozenset(unfresh), frozenset(copies)
+
+    def _apply_carries(self, new_carries: dict) -> None:
+        """Bind new carries and keep the freshness index exact."""
+        for vi, c in new_carries.items():
+            self.carries[vi] = c
+            self._classify_carry(vi, c)
+
+    def _carries_fresh(self) -> bool:
+        return not self._unfresh
+
+    def _carries_equal(self, snapshot: dict,
+                       snap_unfresh: frozenset) -> bool:
+        """Live carries == snapshot: with the snapshot's unfresh set only
+        the unfresh entries need comparing (an entry fresh on both sides
+        is equal)."""
+        if self._unfresh != snap_unfresh:
+            return False
+        return all(self.carries[vi] == snapshot[vi] for vi in self._unfresh)
+
+    def _prebake_take(self, fb: FlowwBank, t0: int, nb: int):
+        """A window served from the prebaked or a recorded chain when the
+        schedule (bank uid and version), the window's grid position and
+        the carry lineage all match, else None. Lineage: the previous
+        window was served from the same chain, or this is the chain's
+        window 0 and the live carries equal its start state (fresh for
+        the seed chain, a snapshot for a recorded one)."""
+        if not self._prebake_on:
+            return None
+        bank = (fb.uid, fb.version)
+        key = (t0, fb.frame, nb)
+        chains = [self._prebaked] if self._prebaked is not None else []
+        chains += list(reversed(self._recorded))  # newest first
+        for ch in chains:
+            if ch["bank"] != bank:
+                continue
+            i = ch["index"].get(key)
+            if i is None:
+                continue
+            if ch["expect"] != i:
+                if i != 0:
+                    continue
+                start = ch.get("start")
+                ok = (self._carries_fresh() if start is None else
+                      self._carries_equal(start, ch["start_unfresh"]))
+                if not ok:
+                    continue
+            ints, floats, layout, delta, fresh_d, unfresh_d, copy_vis = \
+                ch["wins"][i]
+            ch["expect"] = i + 1
+            if copy_vis:
+                delta = {vi: (_copy_carry(c) if vi in copy_vis else c)
+                         for vi, c in delta.items()}
+            return ints, floats, layout, delta, fresh_d, unfresh_d
+        return None
+
+    _REC_MAX = 4       # recorded chains kept (LRU)
+    _REC_MIN_NB = 64   # only render-scale windows are worth recording
+
+    def _record_window(self, fb: FlowwBank, t0: int, nb: int, ints, floats,
+                       layout, new_carries) -> None:
+        """Record one live-baked window (its uploaded buffers) into the
+        active recording chain, started with a snapshot of the carries
+        before the window. Called before self.carries is updated."""
+        if not self._prebake_on or nb < self._REC_MIN_NB:
+            return
+        used = _nbytes(ints, floats)
+        if self._prebake_used + used > self._prebake_budget:
+            self._rec_finish()
+            return
+        bank = (fb.uid, fb.version)
+        rec = self._rec_active
+        if (rec is None or rec["bank"] != bank
+                or rec["next"] != (t0, fb.frame)):
+            self._rec_finish()
+            # a version bump never reverts: chains of older bank versions
+            # can never serve again, so they stop holding device memory
+            for r in [r for r in self._recorded if r["bank"] != bank]:
+                self._recorded.remove(r)
+                self._prebake_used -= r["bytes"]
+            rec = self._rec_active = {
+                "bank": bank,
+                "start": {vi: _copy_carry(c)
+                          for vi, c in self.carries.items()},
+                "start_unfresh": frozenset(self._unfresh),
+                "index": {}, "wins": [], "expect": None, "bytes": 0,
+            }
+        delta = {vi: _copy_carry(c) for vi, c in new_carries.items()
+                 if c != self.carries.get(vi)}
+        rec["index"][(t0, fb.frame, nb)] = len(rec["wins"])
+        rec["wins"].append((ints, floats, layout, delta,
+                            *self._classify_delta(delta)))
+        rec["next"] = (t0 + nb * self.bl, fb.frame + nb * self.bl)
+        rec["bytes"] += used
+        self._prebake_used += used
+
+    def _rec_finish(self) -> None:
+        """Archive the active recording, if it captured anything."""
+        rec = self._rec_active
+        self._rec_active = None
+        if rec and rec["wins"]:
+            rec.pop("next", None)
+            self._recorded.append(rec)
+            while len(self._recorded) > self._REC_MAX:
+                self._prebake_used -= self._recorded.pop(0)["bytes"]
+
+    def _reset_chain_expects(self) -> None:
+        """A live-baked window left every chain's lineage: only a window-0
+        re-entry may serve now."""
+        if self._prebaked is not None:
+            self._prebaked["expect"] = None
+        for rec in self._recorded:
+            rec["expect"] = None
+
+    def _break_prebake_chain(self) -> None:
+        """An external state change (a seek): reset chain lineage and
+        close the active recording."""
+        self._reset_chain_expects()
+        self._rec_finish()
+
+    def release_chains(self) -> None:
+        """Drop every prebaked and recorded chain, their device buffers
+        included (called on the graph a refresh replaces)."""
+        self._prebaked = None
+        self._recorded.clear()
+        self._rec_active = None
+        self._prebake_used = 0
+        self._seeded_sigs.clear()  # a future seed must rebuild
 
     def load_reference_state(
         self, num_state: dict[str, np.ndarray], carries: dict, t: int
@@ -490,8 +771,10 @@ class CompiledGraph:
                 raise ValueError(f"vertex {vi}: carry {type(c).__name__} is "
                                  f"not a {cls.__name__}")
             self.carries[vi] = port
+        self._rebuild_unfresh()
         self.t = t
         self.graph.t = t
+        self._break_prebake_chain()
 
     def _pack_fx(self) -> dict[str, dict[str, torch.Tensor]]:
         """Traced effect parameters, uploaded as one f32 vector, as the
@@ -551,24 +834,32 @@ class CompiledGraph:
         """Reference extensions.rs:196-204 partial reset: clear DebugSine
         and Synth notes, re-prime BandPass; SampleMulti/SampleLerp/SampSyn
         voice clocks keep their elapsed time (absolute frames remapped).
-        Adsr cell clocks are time-relative values and carry through."""
+        Adsr cell clocks are time-relative values and carry through. Every
+        branch is a no-op on a fresh carry but the SampleLerp remap, so
+        only unfresh carries and SampleLerps are visited; each change
+        rebinds (carries are immutable values) and keeps _unfresh exact.
+        Breaks every chain's lineage."""
         dt = t - self.t
-        for vi, carry in self.carries.items():
+        for vi in self._unfresh.union(self._lerp_vis):
+            carry = self.carries[vi]
             kind = self.statics[vi].kind
             if kind in (G.DEBUGSINE, G.SYNTH):
                 if carry.notes:
                     self.carries[vi] = type(carry)()
+                    self._unfresh.discard(vi)
             elif kind == G.SAMPLEMULTI:
-                if carry.voices:
+                if carry.voices:  # stays unfresh (still non-empty)
                     self.carries[vi] = B.MultiCarry(
                         [(s + dt, v) for s, v in carry.voices]
                     )
             elif kind == G.SAMPLELERP:
-                self.carries[vi] = replace(
+                c = replace(
                     carry,
                     primary_start=carry.primary_start + dt,
                     ghost_start=carry.ghost_start + dt,
                 )
+                self.carries[vi] = c
+                self._classify_carry(vi, c)
             elif kind == G.SAMPSYN and carry.notes:
                 self.carries[vi] = B.NotesCarry([
                     replace(
@@ -585,6 +876,7 @@ class CompiledGraph:
                 self.num_state[f"{vi}.bp"] = BandPassState.init(self.device)
         self.t = t
         self.graph.t = t
+        self._break_prebake_chain()
 
     def change_time(self, delta: int, plus: bool) -> int:
         new_t = self.t + delta if plus else self.t - min(delta, self.t)
@@ -601,17 +893,34 @@ class CompiledGraph:
         """Render `nb` blocks starting at the current graph time. The floww
         bank cursor must already sit at the same frame (the engine aligns
         them). Advances graph time and all carried state. Returns device
-        audio [nb*bl, 2]."""
+        audio [nb*bl, 2].
+
+        A window on a chain's grid with the chain's schedule and carry
+        lineage is served from it (its stored device buffers, no bake and
+        no upload); any other is baked live, uploaded, and recorded when
+        it is render-sized (reference compile.py:1016-1071)."""
         t0 = self.t
-        bakes, new_carries = self._bake_all(fb, t0, nb)
-        ints_buf, floats_buf, layout = _pack_bakes(bakes)
-        dev_bakes = _unpack_bakes(
-            torch.from_numpy(ints_buf).to(self.device),
-            torch.from_numpy(floats_buf).to(self.device),
-            layout,
-        )
-        audio = self._program(dev_bakes, t0, nb, is_scan)
-        self.carries.update(new_carries)
+        served = self._prebake_take(fb, t0, nb)
+        if served is not None:
+            ints, floats, layout, new_carries, fresh_d, unfresh_d = served
+            self.served_windows += 1
+        else:
+            self._reset_chain_expects()
+            bakes, new_carries = self._bake_all(fb, t0, nb)
+            ints, floats, layout = self._upload(bakes)
+            self.live_bakes += 1
+            self._record_window(fb, t0, nb, ints, floats, layout,
+                                new_carries)
+        with filters.exact_biquad_scope(self.exact_biquad):
+            audio = self._program(_unpack_bakes(ints, floats, layout), t0,
+                                  nb, is_scan)
+        if served is None:
+            self._apply_carries(new_carries)
+        else:
+            # the served delta's classification was computed at build
+            self.carries.update(new_carries)
+            self._unfresh.difference_update(fresh_d)
+            self._unfresh.update(unfresh_d)
         self.t = t0 + nb * self.bl
         self.graph.t = self.t
         return audio
@@ -624,21 +933,30 @@ class CompiledGraph:
         per-vertex voices merge into one COMPACT voice table (only voices
         that intersect each block), so the kernel's work is proportional
         to live voices. Table shapes pad to the sticky `bake_caps`
-        (raised here on overflow)."""
+        (raised here on overflow). Under TERMDAW_VOICE_CAP the voice
+        tables' `p` is clamped to the cap and overflow steals the oldest
+        voices (reference compile.py:1263-1296)."""
         carries = self.carries if carries is None else carries
         bakes: dict[str, dict[str, np.ndarray]] = {}
         new_carries: dict[int, Any] = {}
+        steal = self.voice_cap is not None
+        names = self.graph.names
         t1 = t0 + nb * self.bl
         for vi, carry in carries.items():
             if vi in self._fused_members:
                 continue  # baked per GROUP below
             st = self.statics[vi]
             key = str(vi)
-            tbl, nc = self._bake_vertex(fb, st, carry, t0, nb,
-                                        self.bake_caps.get(key))
+            caps = self.bake_caps.get(key)
+            if steal:
+                caps = dict(caps or {})
+                caps["p"] = min(caps.get("p", self.voice_cap),
+                                self.voice_cap)
+            tbl, nc = self._bake_vertex(fb, st, carry, t0, nb, caps, steal)
             bakes[key] = tbl
             new_carries[vi] = nc
-            self._record_caps(key, st.kind, tbl)
+            self._record_caps(key, (self.cap_scope, names[vi], st.kind),
+                              st.kind, tbl)
         for consumer, members in self.fused_groups.items():
             voices_, group_carries = self._bake_fused_group(
                 fb, consumer, members, t0, t1, carries
@@ -646,11 +964,13 @@ class CompiledGraph:
             new_carries.update(group_carries)
             tbl = self._merge_group(voices_, consumer, members, t0, nb)
             bakes[f"fused{consumer}"] = tbl
-            self._record_caps(f"fused{consumer}", "fused", tbl)
+            self._record_caps(f"fused{consumer}",
+                              (self.cap_scope, names[consumer], "fused"),
+                              "fused", tbl)
         return bakes, new_carries
 
     def _bake_vertex(self, fb: FlowwBank, st: _VertexStatic, carry,
-                     t0: int, nb: int, caps):
+                     t0: int, nb: int, caps, steal: bool):
         """One event vertex's window table and end carry (graph/bake.py)."""
         bl, sr = self.bl, self.sr
         if st.kind in (G.DEBUGSINE, G.SYNTH, G.SAMPSYN) or (
@@ -658,16 +978,17 @@ class CompiledGraph:
         ):
             simple = fb.bake_simple(st.floww_index, nb)
             if st.kind == G.DEBUGSINE:
-                return B.bake_debug_sine(simple, carry, t0, nb, bl, caps)
+                return B.bake_debug_sine(simple, carry, t0, nb, bl, caps,
+                                         steal)
             if st.kind == G.ADSR:
                 return B.bake_adsr_off(simple, carry, st.confs[0], sr, t0,
                                        nb, bl, st.note, caps)
             return B.bake_notes(simple, carry, t0, nb, bl, sr,
-                                st.release_sec, caps)
+                                st.release_sec, caps, steal)
         drum = fb.bake_drum(st.floww_index, nb).filter_note(st.note)
         if st.kind == G.SAMPLEMULTI:
             return B.bake_sample_multi(drum, carry, t0, nb, bl,
-                                       st.sample_len, caps)
+                                       st.sample_len, caps, steal)
         if st.kind == G.SAMPLELERP:
             return B.bake_sample_lerp(drum, carry, t0, nb, bl, st.lerp_len,
                                       caps)
@@ -866,6 +1187,18 @@ class CompiledGraph:
         # block-major order with voice order preserved within a block
         order = np.argsort(kk, kind="stable")
         kk, pp = kk[order], pp[order]
+        if self.voice_cap is not None:
+            # TERMDAW_VOICE_CAP applies per member vertex, as the block
+            # table's oldest-voice steal: within each (block, member) only
+            # the newest voice_cap voices stay. (kk, pp) is block-major
+            # with pp in member-major trigger order, so the (block, member)
+            # key is sorted and the newest sit last
+            gkey = kk * len(members) + mid[pp].astype(np.int64)
+            first = np.searchsorted(gkey, gkey, "left")
+            last = np.searchsorted(gkey, gkey, "right")
+            keep = np.arange(len(kk)) - first >= (last - first) - \
+                self.voice_cap
+            kk, pp = kk[keep], pp[keep]
         b = np.clip(
             block_starts[kk] - starts[pp] + bl, 0, slen[pp] + bl
         ) + base[pp]

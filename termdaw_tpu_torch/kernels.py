@@ -11,7 +11,8 @@ The three tiled scans (affine_scan.cu, complex_scan.cu and
 max_decay_scan.cu on csrc/scan_tile.cuh) take their tiling from
 `scan_plan`, and their scratch planes from the launch functions here;
 the voice mix takes its regime, grid and shared memory from
-`voice_mix_plan`.
+`voice_mix_plan`; the exact biquad lane (biquad_seq.cu) plans its own
+one-CTA-per-32-channels grid.
 
 nvcc is looked up in `$CUDA_HOME/bin`, then `/usr/local/cuda/bin`, then
 `PATH`.
@@ -39,7 +40,8 @@ NVCC_FLAGS = (
 )
 
 # every csrc/<name>.cu of the port
-KERNELS = ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan")
+KERNELS = ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan",
+           "biquad_seq")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -145,6 +147,12 @@ def complex_scan_lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load("complex_scan", "complex_scan_launch",
                  [vp] * 9 + [ctypes.c_longlong, ci, ci, ci, vp])
+
+
+def biquad_seq_lib() -> ctypes.CDLL:
+    vp = ctypes.c_void_p
+    return _load("biquad_seq", "biquad_seq_launch",
+                 [vp] * 9 + [ctypes.c_longlong, ctypes.c_int, vp])
 
 
 SCAN_THREADS = 256            # scan_tile.cuh kThreads
@@ -318,3 +326,21 @@ def complex_scan_launch(f_r: torch.Tensor, f_i: torch.Tensor,
     contiguity; raises if the launch is refused."""
     _scan_launch(complex_scan_lib, "complex_scan", "complex",
                  (f_r, f_i, p_r, p_i, s_r, s_i), (u_r, u_i))
+
+
+def biquad_seq_launch(x: torch.Tensor, b0: torch.Tensor, b1: torch.Tensor,
+                      b2: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor,
+                      state: torch.Tensor, y: torch.Tensor,
+                      new_state: torch.Tensor) -> None:
+    """Launch csrc/biquad_seq.cu on the tensors' device and current
+    stream: x, y [T, C], coefficients [C], states [4, C], all float32 and
+    contiguous. The caller (ops/filters.biquad_apply_sequential) has
+    checked them; raises if the launch is refused."""
+    T, C = x.shape
+    fn = biquad_seq_lib().biquad_seq_launch
+    with torch.cuda.device(y.device):
+        rc = fn(*(t.data_ptr() for t in (x, b0, b1, b2, a1, a2, state, y,
+                                         new_state)),
+                T, C, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"biquad_seq kernel launch failed: CUDA error {rc}")

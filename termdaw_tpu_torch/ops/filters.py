@@ -31,17 +31,22 @@ The effects' building blocks, single device (the `axis_name` branches,
 * `biquad_coefs`, `biquad_init_state`, `biquad_apply` (filters.py:357-534):
   the direct-form-1 biquad as a cascade of two first-order complex
   recurrences through its poles, each one ops/scan.complex_affine_scan
-  (the hand-written CUDA kernel on the card).
-
-The reference's exact sequential biquad lane (`biquad_apply_sequential`,
-selected by TERMDAW_EXACT_BIQUAD=1) is not ported: a graph with a biquad
-effect refuses to build while that variable is set
-(graph/compile.py), and `biquad_apply` never substitutes the parallel
-lane for it.
+  (the hand-written CUDA kernel on the card);
+* the exact sequential lane (filters.py:384-441): `biquad_apply_sequential`
+  runs the recurrence frame by frame in the reference's order, each
+  multiply and add rounded on its own; `biquad_apply` takes it instead of
+  the parallel lane when `exact_biquad_scope` pins it (graph/compile.py
+  pins the value it read from TERMDAW_EXACT_BIQUAD at build) or, with no
+  pin, when the variable says so. On CUDA tensors it launches the
+  hand-written kernel csrc/biquad_seq.cu (counter `biquad_seq_launches`)
+  or raises; on CPU tensors it runs `biquad_seq_plain`, a per-frame
+  float32 numpy loop. The two are bit-identical.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 import os
 from typing import NamedTuple
@@ -162,11 +167,107 @@ def biquad_init_state(channels: int, device: torch.device) -> torch.Tensor:
     return torch.zeros((4, channels), dtype=torch.float32, device=device)
 
 
+# launches of csrc/biquad_seq.cu by biquad_apply_sequential (CPU calls do
+# not count)
+biquad_seq_launches = 0
+
+
+def biquad_seq_plain(x, b0, b1, b2, a1, a2, state):
+    """The exact lane's plain version: a per-frame float32 loop over the
+    host copies of x [T, C], the per-channel coefficients [C] and the
+    state [4, C], each multiply and add rounded on its own in the
+    reference's order y = (((b0*x + b1*x1) + b2*x2) - a1*y1) - a2*y2.
+    Returns (y [T, C], state (x[T-1], x[T-2], y[T-1], y[T-2])) on x's
+    device."""
+    xs = x.detach().cpu().numpy()
+    B0, B1, B2, A1, A2 = (np.asarray(c.detach().cpu().numpy(), np.float32)
+                          for c in (b0, b1, b2, a1, a2))
+    x1, x2, y1, y2 = state.detach().cpu().numpy().astype(np.float32)
+    y = np.empty_like(xs)
+    for t in range(xs.shape[0]):
+        xt = xs[t]
+        acc = B0 * xt + B1 * x1
+        acc = acc + B2 * x2
+        acc = acc - A1 * y1
+        acc = acc - A2 * y2
+        y[t] = acc
+        x2, x1, y2, y1 = x1, xt, y1, acc
+    s = np.stack([x1, x2, y1, y2])
+    return (torch.from_numpy(y).to(x.device),
+            torch.from_numpy(s).to(x.device))
+
+
+def biquad_apply_sequential(x: torch.Tensor, coefs: tuple,
+                            state: torch.Tensor):
+    """The exact-order sequential biquad over x [T, C] (reference
+    filters.py:384-406): the recurrence of biquad_apply evaluated frame by
+    frame with no reassociation. `coefs` = (b0, b1, b2, a1, a2), each a
+    scalar, a 0-d tensor or a [C] tensor; state [4, C]. Returns (y [T, C],
+    new state [4, C]). CUDA tensors run csrc/biquad_seq.cu, CPU tensors
+    biquad_seq_plain; anything else raises."""
+    global biquad_seq_launches
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"biquad_apply_sequential: x must be [T, C] with "
+                         f"T, C >= 1, got {tuple(x.shape)}")
+    T, C = x.shape
+    cs = tuple(lanes(c, C, x.device) for c in coefs)
+    if len(cs) != 5:
+        raise ValueError(f"biquad_apply_sequential: 5 coefficients, got "
+                         f"{len(cs)}")
+    if state.shape != (4, C):
+        raise ValueError(f"biquad_apply_sequential: state must be [4, {C}],"
+                         f" got {tuple(state.shape)}")
+    for name, t in (("x", x), ("state", state)) + tuple(
+            zip(("b0", "b1", "b2", "a1", "a2"), cs)):
+        if t.device != x.device:
+            raise ValueError(f"biquad_apply_sequential: {name} on "
+                             f"{t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"biquad_apply_sequential: {name} is {t.dtype}, "
+                            "expected torch.float32")
+    if x.device.type == "cpu":
+        return biquad_seq_plain(x, *cs, state)
+    if x.device.type != "cuda":
+        raise ValueError(f"biquad_apply_sequential: unsupported device "
+                         f"{x.device}")
+    from ..kernels import biquad_seq_launch
+
+    x, state = x.contiguous(), state.contiguous()
+    y = torch.empty_like(x)
+    new_state = torch.empty_like(state)
+    biquad_seq_launch(x, *cs, state, y, new_state)
+    biquad_seq_launches += 1
+    return y, new_state
+
+
+# the lane pinned for the calls inside exact_biquad_scope: the compiled
+# graph reads TERMDAW_EXACT_BIQUAD once at build and renders each window
+# under its value, so a later change of the variable does not switch a
+# built graph's lane (a ContextVar, so interleaved renders of graphs built
+# with different values each keep their own)
+_EXACT_BIQUAD_OVERRIDE: contextvars.ContextVar[bool | None] = (
+    contextvars.ContextVar("exact_biquad_override", default=None)
+)
+
+
+@contextlib.contextmanager
+def exact_biquad_scope(value: bool):
+    """Pin the biquad lane (True: the exact sequential lane) inside."""
+    token = _EXACT_BIQUAD_OVERRIDE.set(bool(value))
+    try:
+        yield
+    finally:
+        _EXACT_BIQUAD_OVERRIDE.reset(token)
+
+
 def exact_biquad_env() -> bool:
-    """TERMDAW_EXACT_BIQUAD=1 asks for the reference's sequential biquad
-    lane, which the port does not have (graph/compile.py reads this once
-    at build and refuses a graph that runs a biquad)."""
+    """TERMDAW_EXACT_BIQUAD=1 asks for the exact sequential biquad lane."""
     return os.environ.get("TERMDAW_EXACT_BIQUAD", "0") == "1"
+
+
+def _exact_biquad() -> bool:
+    pinned = _EXACT_BIQUAD_OVERRIDE.get()
+    return exact_biquad_env() if pinned is None else pinned
 
 
 def biquad_apply(x: torch.Tensor, coefs: tuple, state: torch.Tensor):
@@ -184,7 +285,11 @@ def biquad_apply(x: torch.Tensor, coefs: tuple, state: torch.Tensor):
 
         u[n] = p1*u[n-1] + f[n],    y[n] = p2*y[n-1] + u[n],
 
-    each one complex_affine_scan (filters.py:444-534, single device)."""
+    each one complex_affine_scan (filters.py:444-534, single device).
+    Where the exact lane is pinned or asked for, biquad_apply_sequential
+    runs instead (filters.py:479-480)."""
+    if _exact_biquad():
+        return biquad_apply_sequential(x, coefs, state)
     T, C = x.shape
     b0, b1, b2, a1, a2 = coefs
     x1 = torch.cat([state[0:1], x[:-1]])

@@ -446,10 +446,6 @@ EFFECTS: dict[str, EffectDef] = {
     ),
 }
 
-# effects whose process runs biquad_apply (the exact sequential biquad
-# lane of the reference is not ported; see graph/compile.py)
-BIQUAD_EFFECTS = ("eq3",)
-
 # case-insensitive URI fragment -> effect kind (covers the Calf URIs the
 # shipped projects load, project.lua:18-21)
 _URI_HINTS = [

@@ -2,7 +2,9 @@
 shapes of a c3/c4 window under several run lengths, beside the one
 kernels.scan_plan picks; and of the voice mix (csrc/voice_mix.cu) at
 c5's shapes from several buffers, in its two regimes and on other
-grids, beside kernels.voice_mix_plan's. Needs a CUDA card:
+grids, beside kernels.voice_mix_plan's; and of the exact biquad lane
+(csrc/biquad_seq.cu) at an eq3 stage's shape under other batch sizes
+and stager counts than the source's. Needs a CUDA card:
 
     python3 -m termdaw_tpu_torch.tools.scan_tiling
 
@@ -11,14 +13,18 @@ shape: for each run length K the tiles along the timeline, the kernels a
 call launches and the device ms per call (torch.profiler over 40 calls
 after a warm-up), with the plan's K marked; for the voice mix, the ms of
 the plan's regime and grid, of 32 warps a CTA on fewer CTAs, and (for a
-buffer the plan stages) of the same buffer streamed. The runs go through
-the kernels' launchers directly, so the wrappers' host time is not in
-them.
+buffer the plan stages) of the same buffer streamed; for the exact
+lane, each (kBatch, kThreads) variant of the source, built beside it
+with the port's nvcc flags, and its bit-exactness to the source's
+build. The runs go through the kernels' launchers directly, so the
+wrappers' host time is not in them.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import subprocess
 import sys
 
@@ -48,6 +54,9 @@ MIXES = (("c5", 6144), ("c4_snare", 9504), ("chip_smoke", 10448),
          ("budget", kernels.VOICE_MIX_RESIDENT_LPAD),
          ("30s_sample", 30 * 48000 + 2 * 1024 + 256))
 MIX_NB, MIX_BL, MIX_P = 375, 1024, 16
+# the exact lane at one eq3 stage: (kBatch, kThreads) variants
+BIQUAD_T, BIQUAD_C = 384000, 4
+BIQUAD_VARIANTS = ((8, 128), (16, 128), (32, 128), (16, 256), (32, 256))
 
 
 def device_ms(fn, reps: int = 40, tries: int = 3) -> tuple[float, float]:
@@ -70,6 +79,68 @@ def device_ms(fn, reps: int = 40, tries: int = 3) -> tuple[float, float]:
             return (sum(e.device_time_total for e in rows) / 1e3 / reps,
                     len(rows) / reps)
     raise RuntimeError(f"the profiler saw no device rows in {tries} traces")
+
+
+def biquad_variants(rng, cuda) -> dict:
+    """Build every BIQUAD_VARIANTS copy of csrc/biquad_seq.cu (kBatch and
+    kThreads replaced) in parallel and time each at [BIQUAD_T, BIQUAD_C]
+    with stable coefficients; each variant's output must equal the
+    source's build bit for bit."""
+    src = (kernels.CSRC / "biquad_seq.cu").read_text()
+    own = tuple(int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                for k in ("kBatch", "kThreads"))
+    out_dir = kernels.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for kb, kt in BIQUAD_VARIANTS:
+        v = src.replace(f"constexpr int kBatch = {own[0]};",
+                        f"constexpr int kBatch = {kb};").replace(
+            f"constexpr int kThreads = {own[1]};",
+            f"constexpr int kThreads = {kt};")
+        cu = out_dir / f"biquad_seq_{kb}x{kt}.cu"
+        cu.write_text(v)
+        procs[(kb, kt)] = subprocess.Popen(
+            [kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-o",
+             str(cu.with_suffix(".so")), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    x = torch.from_numpy(rng.normal(size=(BIQUAD_T, BIQUAD_C)).astype(
+        np.float32)).to(cuda)
+    coefs = [torch.full((BIQUAD_C,), v, device=cuda)
+             for v in (0.2, 0.4, 0.2, -0.9, 0.3)]
+    state = torch.zeros((4, BIQUAD_C), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def runner(lib):
+        y, s_out = torch.empty_like(x), torch.empty_like(state)
+        ptrs = [t.data_ptr() for t in (x, *coefs, state, y, s_out)]
+
+        def call():
+            rc = lib.biquad_seq_launch(*ptrs, BIQUAD_T, BIQUAD_C, stream)
+            if rc:
+                raise RuntimeError(f"biquad_seq variant: CUDA error {rc}")
+        return call, y
+
+    ref_call, ref_y = runner(kernels.biquad_seq_lib())
+    ref_call()
+    runs = {}
+    for (kb, kt), proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on variant {kb}x{kt}:\n{log}")
+        lib = ctypes.CDLL(str(out_dir / f"biquad_seq_{kb}x{kt}.so"))
+        lib.biquad_seq_launch.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_void_p])
+        lib.biquad_seq_launch.restype = ctypes.c_int
+        call, y = runner(lib)
+        call()
+        torch.cuda.synchronize()
+        ms, _ = device_ms(call, reps=10)
+        runs[f"kBatch={kb},kThreads={kt}"] = {
+            "ms": ms, "bit_exact": bool(torch.equal(y, ref_y)),
+            "source": (kb, kt) == own}
+    return {"shape": "biquad_seq_eq3_stage", "T": BIQUAD_T, "C": BIQUAD_C,
+            "runs": runs}
 
 
 def main() -> int:
@@ -154,6 +225,7 @@ def main() -> int:
         print(json.dumps({"shape": f"voice_mix_{name}", "lpad": lpad,
                           "nb": MIX_NB, "bl": MIX_BL, "P": MIX_P,
                           "runs": runs}), flush=True)
+    print(json.dumps(biquad_variants(rng, cuda)), flush=True)
     return 0
 
 

@@ -151,12 +151,16 @@ set_output("sum");
 
 
 def write_c4_project(d: Path, length_sec: float, sr: int, bl: int,
-                     render_sr: int = 44100, bd: int = 16) -> None:
+                     render_sr: int = 44100, bd: int = 16,
+                     live: bool = False) -> None:
     """Config 4: the reference's full demo project with effects
     (build_demo_project(include_fx=True)): SampleLerp kick and hat, a
     SampleMulti snare, a Synth bass and a SampSyn chord track ducked by an
     Adsr on the kick, a BandPass, then reverb -> compressor -> eq3 ->
-    delay (effect params set by LV2-style names) into a Normalize."""
+    delay (effect params set by LV2-style names) into a Normalize.
+    `live` adds two streams for the stream workflow: "drums" plays the
+    snare sample into the Normalize, "keys" a Synth into the Adsr duck
+    (and so through the effect chain)."""
     d = Path(d)
     d.mkdir(parents=True, exist_ok=True)
     drum(d / "kick.wav", sr, 0.18, 55.0, 28.0)
@@ -177,6 +181,15 @@ def write_c4_project(d: Path, length_sec: float, sr: int, bl: int,
                      ("bass", bass), ("chords", chords)):
         write_midi(d / f"{name}.mid", ev, bpm=120)
     write_wavetable(d / "table.wt", WaveTable.default())
+    streams = """
+declare_stream("drums");
+declare_stream("keys");
+add_sample_multi("live_drums", 0.8, 10.0, "snare", "drums", -1);
+add_synth("live_keys", 0.4, -10.0, "keys", 0.4, 0.3, note_adsr,
+          0.0, 0.0, {}, 0.0, {});
+connect("live_drums", "sum");
+connect("live_keys", "duck");
+""" if live else ""
     (d / "project.lua").write_text(f"""
 set_length({length_sec});
 set_render_samplerate({render_sr});
@@ -237,7 +250,7 @@ connect("fxverb", "fxcomp");
 connect("fxcomp", "fxeq");
 connect("fxeq", "fxdel");
 connect("fxdel", "sum");
-
+{streams}
 set_output("sum");
 """)
     _toml(d, bl, sr)

@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the voice-mix, affine-scan, max-decay and
-complex-scan kernels against their plain versions, the effects, small
-renders and playback on the card against the port's CPU path. This file
+"""The port on a CUDA card: the voice-mix, affine-scan, max-decay,
+complex-scan and exact-biquad kernels against their plain versions, the
+effects, small renders (the exact lane's and a chain-served one among
+them) and playback on the card against the port's CPU path. This file
 imports no JAX, so it also runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -464,3 +465,101 @@ def test_small_c4_render_on_card_matches_cpu(cuda, tmp_path):
     want, _ = read_wav_ints(tmp_path / "outp.wav")
     assert np.abs(got).max() > 16000
     assert np.abs(got - want).max() <= 1
+
+
+def _biquad_args(cuda, T, C, seed):
+    """The c4 eq3's stage coefficients (lowpass and highpass at 180 Hz and
+    4 kHz, 48 kHz) over C channels, a seeded input and state."""
+    cs = np.asarray([filters.biquad_coefs(k, f, 48000) for k, f in (
+        ("lowpass", 180.0), ("highpass", 180.0), ("lowpass", 4000.0),
+        ("highpass", 4000.0))], np.float32).T  # [5, 4]
+    rng = np.random.default_rng(seed)
+    host = [rng.normal(size=(T, C)).astype(np.float32)]
+    host += [np.ascontiguousarray(np.resize(c, C)) for c in cs]
+    host.append(rng.normal(size=(4, C)).astype(np.float32))
+    return [torch.from_numpy(v).to(cuda) for v in host]
+
+
+# the kernel's tile is 2048 / CL frames (CL = C rounded up to a power of two)
+@pytest.mark.parametrize("where", ["1", "2", "edge-1", "edge", "edge+1",
+                                   "ragged"])
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_biquad_seq_kernel_bit_exact_on_card(cuda, where, C):
+    """The exact lane's kernel against its plain version, output and
+    state, bit for bit: both round every multiply and add on its own in
+    the reference's order."""
+    F = 2048 // C
+    T = {"1": 1, "2": 2, "edge-1": F - 1, "edge": F, "edge+1": F + 1,
+         "ragged": 3 * F + 5}[where]
+    args = _biquad_args(cuda, T, C, seed=T + C)
+    n0 = filters.biquad_seq_launches
+    y, s = filters.biquad_apply_sequential(args[0], tuple(args[1:6]),
+                                           args[6])
+    torch.cuda.synchronize()
+    assert filters.biquad_seq_launches == n0 + 1
+    wy, ws = filters.biquad_seq_plain(*(a.cpu() for a in args))
+    assert torch.equal(y.cpu(), wy) and torch.equal(s.cpu(), ws)
+
+
+def test_biquad_seq_wrapper_raises_on_card(cuda):
+    """Bad shapes, types and devices raise, uncounted; nothing falls back
+    to the plain loop on a CUDA tensor."""
+    x, *cs, st = _biquad_args(cuda, 100, 4, seed=1)
+    n0 = filters.biquad_seq_launches
+    with pytest.raises(ValueError, match="state must be"):
+        filters.biquad_apply_sequential(x, tuple(cs), st[:, :3])
+    with pytest.raises(ValueError, match=r"\[T, C\]"):
+        filters.biquad_apply_sequential(x[:, 0], tuple(cs), st)
+    with pytest.raises(ValueError, match="on cpu"):
+        filters.biquad_apply_sequential(x, tuple(cs), st.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        filters.biquad_apply_sequential(x.double(), tuple(cs), st)
+    with pytest.raises(RuntimeError):
+        filters.biquad_apply_sequential(x, tuple(c[:3] for c in cs), st)
+    assert filters.biquad_seq_launches == n0
+    filters.biquad_apply_sequential(x, tuple(cs), st)
+    assert filters.biquad_seq_launches == n0 + 1
+
+
+def test_small_c4_exact_lane_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """TERMDAW_EXACT_BIQUAD=1: the eq3 runs the kernel (4 launches a
+    window), never the complex scan, within one count of the CPU."""
+    monkeypatch.setenv("TERMDAW_EXACT_BIQUAD", "1")
+    write_c4_project(tmp_path, 2.0, 8000, 256, render_sr=8000)
+    st = load_state(tmp_path, cuda)
+    n0, c0 = filters.biquad_seq_launches, scan.complex_launches
+    st.render()
+    assert filters.biquad_seq_launches - n0 == 4
+    assert scan.complex_launches == c0
+    got, _ = read_wav_ints(tmp_path / "outp.wav")
+    load_state(tmp_path, torch.device("cpu")).render()
+    want, _ = read_wav_ints(tmp_path / "outp.wav")
+    assert np.abs(got).max() > 16000
+    assert np.abs(got - want).max() <= 1
+
+
+def test_chain_served_c5_render_on_card_bit_identical(cuda, tmp_path,
+                                                      monkeypatch):
+    """A c5 render served from the prebaked chain on the card is
+    bit-identical to one baked live (TERMDAW_PREBAKE=0)."""
+    packets = write_c5_project(tmp_path, 20.0, 8000, 256, n_tracks=8,
+                               hit_sr=16000, bd=16)
+    def two_renders(st):
+        # the Normalize's running max carries from one render to the next,
+        # so render i is compared with render i
+        out = []
+        for _ in range(2):
+            st.render()
+            out.append(read_wav_ints(tmp_path / "mix.wav")[0])
+        return out
+
+    st = load_state(tmp_path, cuda, packets)
+    served = two_renders(st)
+    assert st.compiled.served_windows == 4 and st.compiled.live_bakes == 0
+    assert st.compiled._prebake_used <= st.compiled._prebake_budget
+    monkeypatch.setenv("TERMDAW_PREBAKE", "0")
+    live = load_state(tmp_path, cuda, packets)
+    want = two_renders(live)
+    assert live.compiled.served_windows == 0
+    for got, w in zip(served, want):
+        np.testing.assert_array_equal(got, w)

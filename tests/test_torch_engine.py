@@ -217,7 +217,16 @@ from termdaw_tpu_torch.utils.fixtures import (
     write_c4_project, write_c5_project)
 packets = write_c5_project({str(tmp_path / 'c5')!r}, 1.0, 8000, 256,
                            n_tracks=3, hit_sr=16000, bd=16)
-load_state({str(tmp_path / 'c5')!r}, torch.device('cpu'), packets).render()
+st5 = load_state({str(tmp_path / 'c5')!r}, torch.device('cpu'), packets)
+st5.render()
+st5.render()
+assert st5.compiled.served_windows == 2 and st5.compiled.live_bakes == 0
+import io
+from termdaw_tpu_torch.engine.sink import NullSink
+from termdaw_tpu_torch.workflows.stream import run_stream_workflow
+st5.compiled.set_time(0)
+run_stream_workflow(8000, 256, st5, NullSink(8000),
+                    input_stream=io.BytesIO(packets), max_idle_s=0.3)
 write_c1_project({str(tmp_path / 'c1')!r}, 1.0, 8000, 256, render_sr=4000)
 load_state({str(tmp_path / 'c1')!r}, torch.device('cpu')).render()
 write_c2_project({str(tmp_path / 'c2')!r}, 1.0, 8000, 256)
@@ -310,21 +319,28 @@ def test_unported_vertex_aborts_the_refresh(tmp_path, monkeypatch, decl):
     np.testing.assert_allclose(_window(port, nb), want, rtol=0, atol=1e-5)
 
 
-def test_exact_biquad_lane_aborts_an_eq3_refresh(tmp_path, monkeypatch,
-                                                 capsys):
-    """TERMDAW_EXACT_BIQUAD=1 asks for the reference's sequential biquad
-    lane, which the port does not have: the refresh of a graph with an
-    eq3 aborts instead of running the parallel lane; without the flag
-    the same project loads."""
-    _fx_project(tmp_path, 'load_lv2("eq", "native:eq3");\n'
-                          'add_lv2fx("fx", 1.0, 0.0, 1.0, "eq");')
+def test_exact_biquad_lane_aborts_an_eq3_refresh(tmp_path, monkeypatch):
+    """TERMDAW_EXACT_BIQUAD=1 no longer aborts an eq3 refresh: a small c4
+    renders with the exact sequential lane in both packages, the WAVs
+    within one 16-bit count, and the port's graph keeps the lane it read
+    at build after the variable is unset."""
+    write_c4_project(tmp_path, **C4)
     monkeypatch.setenv("TERMDAW_EXACT_BIQUAD", "1")
-    with pytest.raises(RuntimeError, match="did not load"):
-        load_state(tmp_path, CPU)
-    out = capsys.readouterr().out
-    assert "exact biquad lane" in out and "not yet ported" in out
+    ref = _ref_state(tmp_path, monkeypatch)
+    port = load_state(tmp_path, CPU)
     monkeypatch.setenv("TERMDAW_EXACT_BIQUAD", "0")
-    assert load_state(tmp_path, CPU).loaded
+    assert port.compiled.exact_biquad and ref.compiled.exact_biquad
+    want_i, rate = _render_ints(ref, tmp_path / "outp.wav")
+    got_i, rate_p = _render_ints(port, tmp_path / "outp.wav")
+    assert rate == rate_p == C4["sr"] and got_i.shape == want_i.shape
+    assert np.abs(want_i).max() > 2 ** 14
+    assert np.abs(got_i - want_i).max() <= 1  # one 16-bit count
+    # the parallel lane renders a different (within 2e-3 of full scale)
+    # song: the flag did switch the lane
+    default = load_state(tmp_path, CPU)
+    assert not default.compiled.exact_biquad
+    lane_i, _ = _render_ints(default, tmp_path / "outp.wav")
+    assert 0 < np.abs(lane_i - got_i).max() <= 2e-3 * 2 ** 15
 
 
 def test_c4_small_matches_reference(tmp_path, monkeypatch):

@@ -389,6 +389,148 @@ def test_biquad_apply_matches_reference_and_float64(lens):
                                atol=1e-4 * max(1.0, np.abs(y64).max()))
 
 
+def _eq3_section_coefs(sr=48000):
+    """The c4 eq3's stage coefficients, [5, 4] f32: lowpass and highpass
+    at the 180 Hz and 4 kHz crossovers."""
+    cs = [filters.biquad_coefs(k, f, sr) for k, f in (
+        ("lowpass", 180.0), ("highpass", 180.0), ("lowpass", 4000.0),
+        ("highpass", 4000.0))]
+    return np.asarray(cs, np.float32).T
+
+
+def _biquad_f32_loop(x, coefs, state):
+    """An independent float32 loop, one channel and one frame at a time,
+    each product and sum rounded to float32 on its own."""
+    f = np.float32
+    y = np.empty(x.shape, np.float32)
+    out = np.empty((4, x.shape[1]), np.float32)
+    for c in range(x.shape[1]):
+        b0, b1, b2, a1, a2 = (f(v) for v in coefs[:, c])
+        x1, x2, y1, y2 = (f(v) for v in state[:, c])
+        for t in range(x.shape[0]):
+            xt = f(x[t, c])
+            acc = f(f(b0 * xt) + f(b1 * x1))
+            acc = f(acc + f(b2 * x2))
+            acc = f(acc - f(a1 * y1))
+            acc = f(acc - f(a2 * y2))
+            y[t, c] = acc
+            x2, x1, y2, y1 = x1, xt, y1, acc
+        out[:, c] = (x1, x2, y1, y2)
+    return y, out
+
+
+@pytest.mark.parametrize("lens", [(1, 1, 1), (2, 1, 700), (2048, 1500)])
+def test_exact_lane_is_bit_exact_to_a_float32_loop(lens):
+    """The plain exact lane over consecutive windows (one-frame windows
+    included, the state carried) equals an independent float32 loop bit
+    for bit, output and state."""
+    coefs = _eq3_section_coefs()
+    rng = np.random.default_rng(len(lens) + sum(lens))
+    x = rng.normal(size=(sum(lens), 4)).astype(np.float32)
+    st0 = rng.normal(size=(4, 4)).astype(np.float32)
+    want, want_st = _biquad_f32_loop(x, coefs, st0)
+    pst, outs, lo = _t(st0), [], 0
+    for n in lens:
+        got, pst = filters.biquad_apply_sequential(
+            _t(x[lo:lo + n]), tuple(_t(c) for c in coefs), pst)
+        outs.append(got.numpy())
+        lo += n
+    np.testing.assert_array_equal(np.concatenate(outs), want)
+    np.testing.assert_array_equal(pst.numpy(), want_st)
+
+
+def test_exact_lane_within_5e5_of_float64():
+    """The reference's gate (tests/test_fx.py:76-97): a lowpass at 800 Hz,
+    48 kHz, over 4096 frames of noise within 5e-5 absolute of float64,
+    scalar coefficients broadcast; and the c4 eq3 sections (the 180 Hz
+    poles lie near the unit circle) within 5e-5 of max |y|."""
+    rng = np.random.default_rng(76)
+    x = rng.normal(size=(4096, 2)).astype(np.float32)
+    c = filters.biquad_coefs("lowpass", 800.0, 48000)
+    y, _ = filters.biquad_apply_sequential(
+        _t(x), c, filters.biquad_init_state(2, CPU))
+    coefs = np.tile(np.asarray(c, np.float32)[:, None], (1, 2))
+    y64 = np.stack([_biquad64(x[:, k], coefs[:, k], np.zeros((4,)))
+                    for k in range(2)], axis=1)
+    np.testing.assert_allclose(y.numpy(), y64, rtol=0, atol=5e-5)
+    coefs = _eq3_section_coefs()
+    x4 = rng.normal(size=(4096, 4)).astype(np.float32)
+    y4, _ = filters.biquad_apply_sequential(
+        _t(x4), tuple(_t(c) for c in coefs), filters.biquad_init_state(4, CPU))
+    y64 = np.stack([_biquad64(x4[:, k], coefs[:, k], np.zeros((4,)))
+                    for k in range(4)], axis=1)
+    np.testing.assert_allclose(y4.numpy(), y64, rtol=0,
+                               atol=5e-5 * np.abs(y64).max())
+
+
+# XLA's CPU backend may contract the reference's lane into FMAs, so the
+# two lanes are held to each other at this bound, relative to max |y|
+EXACT_VS_REFERENCE_RTOL = 2e-5
+
+
+@pytest.mark.parametrize("lens", [(1, 1, 1), (2048, 1500)])
+def test_exact_lane_matches_reference_lane(lens):
+    coefs = _eq3_section_coefs()
+    rng = np.random.default_rng(sum(lens))
+    x = rng.normal(size=(sum(lens), 4)).astype(np.float32)
+    rcoefs = tuple(jnp.asarray(c) for c in coefs)
+    rfn = jax.jit(lambda x, s: rfilt.biquad_apply_sequential(x, rcoefs, s))
+    rst = rfilt.biquad_init_state(4)
+    pst = filters.biquad_init_state(4, CPU)
+    lo = 0
+    for n in lens:
+        want, rst = rfn(jnp.asarray(x[lo:lo + n]), rst)
+        got, pst = filters.biquad_apply_sequential(
+            _t(x[lo:lo + n]), tuple(_t(c) for c in coefs), pst)
+        tol = EXACT_VS_REFERENCE_RTOL * max(1.0, np.abs(np.asarray(want)).max())
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=tol)
+        np.testing.assert_allclose(pst.numpy(), np.asarray(rst), rtol=0,
+                                   atol=tol)
+        lo += n
+
+
+@pytest.mark.parametrize("env,pin,exact", [
+    ("1", None, True), ("0", True, True), ("1", False, False),
+    ("0", None, False)])
+def test_exact_lane_routing(monkeypatch, env, pin, exact):
+    """biquad_apply runs the exact lane where exact_biquad_scope pins it
+    or, with no pin, where TERMDAW_EXACT_BIQUAD=1 asks for it (mirror of
+    tests/test_fx.py:119-131); the reference routes the same way."""
+    monkeypatch.setenv("TERMDAW_EXACT_BIQUAD", env)
+    x = np.random.default_rng(119).normal(size=(512, 2)).astype(np.float32)
+    c = filters.biquad_coefs("lowpass", 1000.0, 48000)
+    tc = tuple(_t(v) for v in c)  # 0-d, broadcast over the channels
+    st = filters.biquad_init_state(2, CPU)
+    seq, _ = filters.biquad_apply_sequential(_t(x), tc, st)
+    if pin is None:
+        got, _ = filters.biquad_apply(_t(x), tc, st)
+        rgot, _ = rfilt.biquad_apply(jnp.asarray(x), c,
+                                     rfilt.biquad_init_state(2))
+    else:
+        with filters.exact_biquad_scope(pin):
+            got, _ = filters.biquad_apply(_t(x), tc, st)
+        with rfilt.exact_biquad_scope(pin):
+            rgot, _ = rfilt.biquad_apply(jnp.asarray(x), c,
+                                         rfilt.biquad_init_state(2))
+    rseq, _ = rfilt.biquad_apply_sequential(jnp.asarray(x), c,
+                                            rfilt.biquad_init_state(2))
+    assert torch.equal(got, seq) == exact
+    assert np.array_equal(np.asarray(rgot), np.asarray(rseq)) == exact
+
+
+def test_exact_lane_rejects_bad_shapes():
+    x = torch.zeros(8, 4)
+    c = tuple(torch.zeros(4) for _ in range(5))
+    with pytest.raises(ValueError, match="state must be"):
+        filters.biquad_apply_sequential(x, c, torch.zeros(4, 3))
+    with pytest.raises(ValueError, match="must be \\[T, C\\]"):
+        filters.biquad_apply_sequential(torch.zeros(0, 4), c,
+                                        torch.zeros(4, 4))
+    with pytest.raises(TypeError, match="float32"):
+        filters.biquad_apply_sequential(x.double(), c, torch.zeros(4, 4))
+
+
 def test_prev_frames_short_and_long_windows():
     tail = _t(np.arange(10, dtype=np.float32).reshape(5, 2))
     x = _t(100 + np.arange(6, dtype=np.float32).reshape(3, 2))

@@ -153,3 +153,62 @@ def test_render_whole_matches_reference(from_sr, to_sr):
         rs.render_whole([_t(c) for c in xs])
     empty = resample.StreamingResampler(from_sr, to_sr, torch.device("cpu"))
     assert tuple(empty.render_whole([]).shape) == (0, 2)
+
+
+_CHUNKINGS = ([4096] * 4 + [20000 - 4 * 4096], [1000, 7000, 12000], [20000])
+
+
+@pytest.mark.parametrize("from_sr,to_sr", [(48000, 44100), (96000, 48000),
+                                           (44100, 48000)])
+def test_streaming_feed_flush_equals_whole(from_sr, to_sr):
+    """feed per chunk then flush against render_whole, the port's
+    resample_device and the reference's resample_device and
+    StreamingResampler, at tests/test_ops.py:313-339's ratios, chunkings
+    and bound (1e-5, a change of reduction order in the matmul)."""
+    n = 20000
+    x = np.random.default_rng(313).normal(size=(n, 2)).astype(np.float32)
+    whole = resample.resample_device(_t(x), from_sr, to_sr).numpy()
+    ref_whole = np.asarray(rres.resample_device(jnp.asarray(x), from_sr,
+                                                to_sr))
+    assert whole.shape == ref_whole.shape == (-(-n * to_sr // from_sr), 2)
+    np.testing.assert_allclose(whole, ref_whole, rtol=0, atol=1e-5)
+    cpu = torch.device("cpu")
+    np.testing.assert_array_equal(
+        whole, resample.StreamingResampler(from_sr, to_sr, cpu)
+        .render_whole([_t(x)]).numpy())
+    for chunks in _CHUNKINGS:
+        rs = resample.StreamingResampler(from_sr, to_sr, cpu)
+        ref = rres.StreamingResampler(from_sr, to_sr)
+        outs, ref_outs, i = [], [], 0
+        for cn in chunks:
+            got = rs.feed(_t(x[i:i + cn]))
+            want = np.asarray(ref.feed(jnp.asarray(x[i:i + cn])))
+            assert got.shape == want.shape  # the same rows become ready
+            outs.append(got.numpy())
+            ref_outs.append(want)
+            i += cn
+        outs.append(rs.flush().numpy())
+        ref_outs.append(np.asarray(ref.flush()))
+        got = np.concatenate(outs)
+        assert got.shape == whole.shape
+        assert (rs.n_in, rs.n_emitted) == (n, whole.shape[0])
+        np.testing.assert_allclose(got, whole, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got, np.concatenate(ref_outs), rtol=0,
+                                   atol=1e-5)
+        assert tuple(rs.flush().shape) == (0, 2)  # nothing left
+    with pytest.raises(RuntimeError):
+        rs.render_whole([_t(x)])
+
+
+@pytest.mark.parametrize("from_sr,to_sr", [(48000, 44101), (44101, 48000)])
+def test_resample_device_gather_path_matches_reference(from_sr, to_sr):
+    """Ratios beyond MAX_PHASES output phases take the gather over the
+    oversampled filter bank, in both packages."""
+    assert to_sr // np.gcd(from_sr, to_sr) > resample.MAX_PHASES
+    x = np.random.default_rng(9).normal(size=(9000, 2)).astype(np.float32)
+    got = resample.resample_device(_t(x), from_sr, to_sr).numpy()
+    want = np.asarray(rres.resample_device(jnp.asarray(x), from_sr, to_sr))
+    assert got.shape == want.shape == (-(-9000 * to_sr // from_sr), 2)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(
+        resample.resample_device(_t(x), 8000, 8000).numpy(), x)
