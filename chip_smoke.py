@@ -92,7 +92,28 @@ the final line:
    TERMDAW_VOICE_CAP=2: finite, every voice table at most 2 voices a
    (block, member);
 17. TERMDAW_PROFILE: one c4 render with it set writes a Chrome trace;
-   the trace's top host ops by self CPU time and the device busy share.
+   the trace's top host ops by self CPU time and the device busy share;
+18. sharded scans and renders (termdaw_tpu_torch/tools/shard_render.py)
+   on 4 ranks, one process each (parallel/mesh.launch): NCCL with a card
+   a rank where the machine has 4 cards, else gloo with the 4 ranks on
+   cuda:0 (the lines name which). First the sharded primitives with CUDA
+   tensors at c4's shard shapes (131,072 and 86,016 frames a rank): the
+   one-pole scan, the max-decay, the eq3's two biquad cascades and c4's
+   21 feedback lines (comb, allpass and delay lengths; offset
+   (rank*T) mod D != 0 on ranks 1-3), each against the plain scans over
+   the whole input on the CPU: within 1e-5 of max |y| (the cascade
+   1e-4), final states equal on every rank and within 1e-4 (the cascade
+   1e-3), and every rank launching the kernel twice a sharded scan (the
+   summary from the identity seed, then the seeded scan); the line gives
+   each kernel's max |diff|. Then c4 and c5 at the full shape. Gated:
+   every rank launches the voice mix, affine, max-decay and complex kernels on c4
+   (the voice mix on c5), each render is 4 sharded windows (3 x 512 +
+   336 blocks) and 1 window of 3 blocks every rank renders alone, rank
+   0's WAV is within 2/32768 of full scale of the single-rank card
+   render (phases 5 and 10), and a failure in any rank fails the phase.
+   Printed: the median of 3 sharded walls (rank 0's render_device) beside
+   the single-rank medians served from a chain and live
+   (TERMDAW_PREBAKE=0), and the host seconds rank 0 spent in collectives.
 
 Then the card line, the kernels line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -135,6 +156,7 @@ STREAM_SECONDS, STREAM_PERIOD_S = 10.0, 0.1   # phase 15's writer
 # Player whose 1-block window costs more than a block never leaves its
 # catch-up loop (as in the reference), so the session has no end of its own
 STREAM_DEADLINE_S = 30.0
+SHARD_RANKS = 4                               # phase 18
 # torch.profiler now and then returns a trace without device rows: a
 # trace is taken again up to this many times, and the empty ones counted
 PROFILE_TRIES = 5
@@ -1368,6 +1390,38 @@ def main() -> int:
             emit("profile_env", card=card, trace_bytes=traces[0].stat().
                  st_size, render_wall_s=p_wall,
                  **trace_breakdown(traces[0]))
+
+        # 18. sharded scans, then sharded renders, on 4 ranks
+        from termdaw_tpu_torch.tools import shard_render
+
+        def transport(shared: bool, backend: str) -> str:
+            return f"{backend}, " + (f"{SHARD_RANKS} ranks sharing cuda:0"
+                                     if shared else "a card a rank")
+
+        try:
+            scans = shard_render.scan_check(SHARD_RANKS)
+        except RuntimeError as e:
+            check(False, str(e))
+        emit("sharded_scans", card=card, cards=count,
+             transport=transport(scans["shared_card"], scans["backend"]),
+             **scans)
+        for cfg, single_ints, bd in (("c4", gpu4, 16), ("c5", gpu5, 32)):
+            d = tmp / f"{cfg}_sharded"
+            pk = shard_render.write_project(cfg, d)
+            single = shard_render.single_walls(d, pk, reps=3)
+            res = shard_render.sharded_run(
+                d, pk, shard_render.PROJECTS[cfg], SHARD_RANKS, reps=3)
+            try:
+                summary = shard_render.summarize(cfg, res, single_ints, bd)
+            except RuntimeError as e:
+                check(False, str(e))
+            check(summary["windows_sharded_alone"] == [(4, 1)],
+                  f"{cfg}: sharded/alone windows a render "
+                  f"{summary['windows_sharded_alone']}, not [(4, 1)]")
+            emit(f"{cfg}_sharded", card=card, cards=count,
+                 transport=transport(summary["shared_card"],
+                                     summary["backend"]),
+                 single_rank=single, **summary)
 
     print(card, flush=True)
     rows = (

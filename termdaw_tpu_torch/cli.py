@@ -8,6 +8,14 @@ configured workflow: the manual one (workflows/ui.py: render, normalize,
 play and the time controls) or the stream one (workflows/stream.py: floww
 packets on stdin; TERMDAW_STREAM_IDLE=<seconds> ends it after that long
 without input).
+
+Under a launcher that starts one process a rank (WORLD_SIZE > 1, with
+RANK, LOCAL_RANK, MASTER_ADDR and MASTER_PORT, as torchrun sets them),
+each rank joins the process group (NCCL on `cuda:<local rank>`, gloo on
+the CPU) and builds the State on its own device with that Mesh. Rank 0
+runs the workflow; the others follow its refresh, render and normalize
+commands (parallel/follow.py), so renders and scans shard across the
+ranks (engine/state.py). A one-card host runs one rank.
 """
 
 from __future__ import annotations
@@ -17,12 +25,16 @@ import os
 import sys
 from pathlib import Path
 
+import torch.distributed as dist
+
 from .config import Config, WorkFlow
 from .engine.sink import make_sink
 from .utils.term import DEFAULT, BLUE, RED
 
 from .device import resolve_device
 from .engine.state import State
+from .parallel import follow as follow_mod
+from .parallel.mesh import mesh_from_env
 from .workflows.stream import run_stream_workflow
 from .workflows.ui import run_ui_workflow
 
@@ -39,6 +51,11 @@ def main(argv: list[str] | None = None) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"{RED}Error: {e}{DEFAULT}")
         return 1
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        mesh = mesh_from_env("nccl" if device.type == "cuda" else "gloo",
+                             device.type)
+        device = mesh.device
     try:
         config = Config.read(Path(wdir) / "project.toml")
     except (OSError, KeyError, ValueError) as e:
@@ -71,9 +88,28 @@ def main(argv: list[str] | None = None) -> int:
         )
         return 1
 
-    proj_sr = config.settings.project_samplerate
-    state = State(config, wdir, device=device)
+    state = State(config, wdir, device=device, mesh=mesh)
     state.refresh()
+    if mesh is None:
+        _run_workflow(config, state)
+        return 0
+    try:
+        group = follow_mod.control_group()
+        if mesh.rank != 0:
+            follow_mod.follow(state, group)
+            return 0
+        leader = follow_mod.Leader(state, group)
+        try:
+            _run_workflow(config, leader)
+        finally:
+            leader.close()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_workflow(config: Config, state) -> None:
+    proj_sr = config.settings.project_samplerate
     sink = make_sink(proj_sr)
     if config.settings.workflow == WorkFlow.MANUAL:
         run_ui_workflow(proj_sr, config.settings.buffer_length, state, sink)
@@ -81,7 +117,6 @@ def main(argv: list[str] | None = None) -> int:
         idle = os.environ.get("TERMDAW_STREAM_IDLE")
         run_stream_workflow(proj_sr, config.settings.buffer_length, state,
                             sink, max_idle_s=float(idle) if idle else None)
-    return 0
 
 
 if __name__ == "__main__":

@@ -10,11 +10,23 @@ graph rebuild) is carried over unchanged; what differs:
   vertex kind, the native effects (engine/plugins.py, ops/fx.py) among
   them; the replaced graph's chains are released first and caps stay
   sticky per project dir (`cap_scope`), as in the reference;
-* there is no backend guard and no mesh: renders run on one device, in
+* there is no backend guard: renders run on the State's device, in
   windows of `render_chunk_blocks(cs)` blocks, traced into
   TERMDAW_PROFILE's dir when it is set (utils/prof.device_trace);
 * `render_device` returns device int tensors, which `render` copies to
-  the host for the WAV writer.
+  the host for the WAV writer;
+* timeline sharding (state.py:527-593, 670-693): a State handed a Mesh
+  of more than one rank (parallel/mesh.py: one process a rank, each with
+  a State of the same project on its own device) splits each window's
+  block range of a render or a normalization scan across the ranks,
+  unless TERMDAW_MESH=0. The reference finds its devices itself; here
+  the caller (the CLI under a launcher, or a `launch`ed function) owns
+  the process group and passes its Mesh, so no State shards just
+  because a group exists (`_mesh_plan`, `_pick_nb`, `_render_window_auto`;
+  windows of max(n, 512 - 512 % n) blocks, no chain stored). The window
+  left over at the end is rendered by every rank alone, so the states
+  stay equal. Rank 0 gathers the audio, resamples and quantizes it once
+  and writes the WAV; the other ranks return no chunks.
 
 Documented deviations of the reference kept here: render aligns the
 floww cursor to the graph time at start; a resource/graph build failure
@@ -25,6 +37,7 @@ resolve against the project dir.
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 import numpy as np
@@ -44,6 +57,7 @@ from ..graph import graph as G
 from ..ops.adsr import build_adsr_conf
 from ..ops.quantize import quantize_interleave_many
 from ..ops.resample import StreamingResampler
+from ..parallel.mesh import Mesh, gather
 from .plugins import PluginHost, AddPluginError
 
 # blocks per window when rendering long timelines (bounds peak memory;
@@ -78,10 +92,16 @@ class RefreshAbort(Exception):
 
 class State:
     def __init__(self, config: Config, wdir: str,
-                 device: str | torch.device) -> None:
+                 device: str | torch.device, mesh: Mesh | None = None) -> None:
         psr = config.settings.project_samplerate
         bl = config.settings.buffer_length
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"State on {self.device}, its mesh's rank "
+                             f"renders on {mesh.device}")
+        # this rank's view of the ranks a render shards over (None: one
+        # device)
+        self.mesh = mesh
         self.config = config
         self.wdir = wdir
         self.lua = LuaRuntime()
@@ -508,6 +528,43 @@ class State:
         print(f"{GREEN}Ok: refreshed.{DEFAULT}")
         self.loaded = True
 
+    # ------------------------------------------------------------------ mesh
+    def _mesh_plan(self) -> tuple[Mesh | None, int, int]:
+        """(mesh | None, n, step): with a mesh of more than one rank,
+        unless TERMDAW_MESH=0, windows shard over its ranks and take
+        `step` = max(n, 512 - 512 % n) blocks (divisibility first; the
+        indivisible tail renders on every rank alone)."""
+        mesh = self.mesh
+        if mesh is None or mesh.size < 2 or \
+                os.environ.get("TERMDAW_MESH", "1") == "0":
+            return None, 1, render_chunk_blocks(self.cs)
+        n = mesh.size
+        return mesh, n, max(n, RENDER_WINDOW_BLOCKS - RENDER_WINDOW_BLOCKS % n)
+
+    @staticmethod
+    def _pick_nb(left: int, step: int, n: int) -> int:
+        """This window's blocks: at most `step`, rounded down to a multiple
+        of n when sharding (the tail renders alone next)."""
+        nb = min(left, step)
+        if n > 1 and nb > n:
+            nb -= nb % n
+        return nb
+
+    def _render_window_auto(self, cg, nb: int, mesh: Mesh | None, n: int,
+                            is_scan: bool = False) -> torch.Tensor | None:
+        """The window's audio: when it shards, the whole window gathered
+        on rank 0 (None on the other ranks, and this rank's slice for a
+        scan, whose audio nobody reads), else this rank's own render of
+        it."""
+        if mesh is not None and nb % n == 0:
+            local = cg.render_window_sharded(self.fb, nb, mesh,
+                                             is_scan=is_scan)
+            if is_scan:
+                return local
+            whole = gather(local, mesh)
+            return None if whole is None else whole.reshape(-1, 2)
+        return cg.render_window(self.fb, nb, is_scan=is_scan)
+
     # ------------------------------------------------------------------ scan
     def scan_exact(self) -> None:
         """2-pass normalization scan (reference graph.rs:222-237)."""
@@ -517,12 +574,13 @@ class State:
         cg.reset_scan_normalize_vertices()
         cg.set_time(0)
         self.fb.set_time(0)
-        step = render_chunk_blocks(self.cs)
-        cg.seed_caps(self.fb, self.cs, step)
+        mesh, n, step = self._mesh_plan()
+        # sharded windows bake live: a stored chain would be waste
+        cg.seed_caps(self.fb, self.cs, step, prebake=(n == 1))
         left = self.cs
         while left > 0:
-            nb = min(left, step)
-            cg.render_window(self.fb, nb, is_scan=True)
+            nb = self._pick_nb(left, step, n)
+            self._render_window_auto(cg, nb, mesh, n, is_scan=True)
             self.fb.advance_blocks(nb)
             left -= nb
         cg.apply_scan_normalize_vertices()
@@ -532,6 +590,12 @@ class State:
     # ------------------------------------------------------------------ render
     def render(self) -> None:
         print(f"{DEFAULT}Status: started rendering{DEFAULT}")
+        mesh, n, _ = self._mesh_plan()
+        # rank 0 of a sharded render (or the only rank) writes the WAV
+        leads = mesh is None or mesh.rank == 0
+        if mesh is not None and leads:
+            print(f"{DEFAULT}Status: rendering on {BLUE}{n}{DEFAULT} ranks "
+                  f"({mesh.backend}).{DEFAULT}")
         psr = self.config.settings.project_samplerate
         msr, mbd = self.sb.get_max_sr_bd()
         if psr > self.render_sr:
@@ -569,13 +633,14 @@ class State:
         with span("render windows"), device_trace("render"):
             chunks = self.render_device()
 
-        writer = WavWriter(
-            self._resolve(self.output_file), 2, self.render_sr, self.bd
-        )
-        with span("render fetch+write"):
-            for ints in chunks:
-                writer.write_ints(ints.cpu().numpy())
-        writer.close()
+        if leads:
+            writer = WavWriter(
+                self._resolve(self.output_file), 2, self.render_sr, self.bd
+            )
+            with span("render fetch+write"):
+                for ints in chunks:
+                    writer.write_ints(ints.cpu().numpy())
+            writer.close()
         cg.set_time(0)
         print(f"{GREEN}Ok: done rendering.{DEFAULT}")
 
@@ -583,19 +648,24 @@ class State:
         """The device side of a render: window-by-window graph evaluation,
         then ONE polyphase resample (when the project rate is above the
         render rate) and ONE quantize over the whole signal. Returns the
-        device int chunks (one, or none for an empty render); graph time is
-        advanced, not reset."""
+        device int chunks (one, or none for an empty render; none on a
+        rank other than 0 of a sharded render); graph time is advanced,
+        not reset."""
         psr = self.config.settings.project_samplerate
         cg = self.compiled
-        step = render_chunk_blocks(self.cs)
+        mesh, n, step = self._mesh_plan()
         # pin bake-table caps from the full known schedule so every window
-        # below produces the same table layout
-        cg.seed_caps(self.fb, self.cs, step)
+        # below produces the same table layout; only a single-device render
+        # stores a chain (sharded windows bake live)
+        cg.seed_caps(self.fb, self.cs, step, prebake=(n == 1))
+        leads = mesh is None or mesh.rank == 0
         wins: list[torch.Tensor] = []
         left = self.cs
         while left > 0:
-            nb = min(left, step)
-            wins.append(cg.render_window(self.fb, nb))
+            nb = self._pick_nb(left, step, n)
+            win = self._render_window_auto(cg, nb, mesh, n)
+            if leads:
+                wins.append(win)
             self.fb.advance_blocks(nb)
             left -= nb
         if not wins:

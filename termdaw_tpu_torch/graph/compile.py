@@ -37,7 +37,17 @@ instead of as a jitted XLA program:
 * the frame -> seconds table (`time_table`, a correctly rounded f32
   division on the host) is uploaded once per size on the graph's device
   and sliced per window, for the synths' `time2d` and every envelope's
-  in-block offsets `ib`.
+  in-block offsets `ib`;
+* `render_window_sharded` (compile.py:1145-1247) renders a window with
+  its block range split across the ranks of a mesh (parallel/mesh.py):
+  every rank bakes the whole window on its host, live, slices the
+  row-sharded bake fields (`_ROW_SHARDED`, compile.py:1175-1178) to its
+  own block rows, uploads only those and runs `_program` on them at its
+  global frame offset t0 + rank*T (`frames`, `time2d`, the SampleLoop
+  slice, the SampleMulti begins); the Normalize, the band-pass and the
+  effects take the mesh, so the numeric state after the window is the
+  global stream's, equal on every rank. It stores no chain and returns
+  this rank's audio.
 
 Fused groups (every SampleMulti whose only consumer is the same vertex,
 two or more per consumer) are formed on every device, so the CPU path
@@ -112,6 +122,13 @@ def _unpack_bakes(ints_buf: torch.Tensor, floats_buf: torch.Tensor, layout):
         buf = ints_buf if kind == "i" else floats_buf
         bakes.setdefault(vkey, {})[field] = buf[off:off + size].reshape(shape)
     return bakes
+
+
+# bake fields with one row a block: a sharded window uploads only its own
+# block rows of these; every other field (instances, segments) replicates
+_ROW_SHARDED = frozenset({
+    "idx", "begins", "vel", "member", "env_ads0", "env_rel0", "p_t0", "g_t0",
+})
 
 
 def _nbytes(*ts: torch.Tensor) -> int:
@@ -458,10 +475,12 @@ class CompiledGraph:
         self._recorded: list[dict] = []
         self._rec_active: dict | None = None
         self._prebake_used = 0
-        # counts for measurement: windows served from a chain, and host
-        # bakes of render windows (seed_caps' walks are not counted)
+        # counts for measurement: windows served from a chain, host bakes
+        # of render windows (seed_caps' walks are not counted) and windows
+        # rendered sharded across ranks
         self.served_windows = 0
         self.live_bakes = 0
+        self.sharded_windows = 0
         # per-fused-group pooled event arrays, keyed by FlowwBank version
         self._pool_cache: dict[int, tuple] = {}
         # per-(consumer, member) processed event arrays, keyed by the
@@ -499,18 +518,26 @@ class CompiledGraph:
         return (torch.from_numpy(ints_buf).to(self.device),
                 torch.from_numpy(floats_buf).to(self.device), layout)
 
-    def seed_caps(self, fb: FlowwBank, total_blocks: int, step: int) -> None:
+    def seed_caps(self, fb: FlowwBank, total_blocks: int, step: int,
+                  prebake: bool | None = None) -> None:
         """Pre-bake the full known event schedule over the render window
         grid and pin every bake-table cap at the observed maxima, so every
         window of the render gets one table layout (pass 1). Pass 2 (unless
-        TERMDAW_PREBAKE=0) bakes the same grid again
+        TERMDAW_PREBAKE=0 or `prebake=False`) bakes the same grid again
         with the pinned caps and stores each window's uploaded buffers and
         carry delta as the prebaked chain that render_window serves, as
-        far as the byte budget reaches. Host numpy, proportional to event
-        count; idempotent; leaves graph and floww state untouched."""
+        far as the byte budget reaches. `prebake=False` is for a render
+        that takes the sharded path, which bakes live: its chain could
+        never be served (reference compile.py:584-619). Host numpy,
+        proportional to event count; idempotent; leaves graph and floww
+        state untouched."""
         if total_blocks <= 0 or not self.carries:
             return
-        sig = (fb.uid, fb.version, total_blocks, step)
+        do_prebake = self._prebake_on and prebake is not False
+        # do_prebake rides the sig: a schedule first seeded for the sharded
+        # path must still build its chain when a single-device render
+        # asks for one
+        sig = (fb.uid, fb.version, total_blocks, step, do_prebake)
         if sig in self._seeded_sigs:
             return  # schedule unchanged since the last seed
         saved_frame = fb.frame
@@ -526,7 +553,7 @@ class CompiledGraph:
                 fb.advance_blocks(nb)
                 t += nb * self.bl
                 left -= nb
-            if self._prebake_on:
+            if do_prebake:
                 self._prebake_chain(fb, total_blocks, step)
         finally:
             # an interrupt mid-seed must not leave the bank's cursor
@@ -925,6 +952,37 @@ class CompiledGraph:
         self.graph.t = self.t
         return audio
 
+    def render_window_sharded(self, fb: FlowwBank, nb_total: int, mesh,
+                              is_scan: bool = False) -> torch.Tensor:
+        """Render `nb_total` blocks from the current graph time with the
+        block range split across the ranks of `mesh` (nb_total a multiple
+        of the world size): this rank renders its nb_total/n blocks and
+        returns their audio [nb_total/n*bl, 2]. Every rank bakes the whole
+        window live (the same carries follow on every rank), uploads its
+        own rows of the row-sharded fields and all of the others. Advances
+        graph time and all carried state; breaks every chain's lineage."""
+        n = mesh.size
+        if nb_total % n != 0:
+            raise ValueError(f"render_window_sharded: nb_total {nb_total} "
+                             f"not divisible by {n} ranks")
+        nb = nb_total // n
+        t0 = self.t
+        bakes, new_carries = self._bake_all(fb, t0, nb_total)
+        self.live_bakes += 1
+        lo, hi = mesh.rank * nb, (mesh.rank + 1) * nb
+        mine = {vkey: {f: (a[lo:hi] if f in _ROW_SHARDED else a)
+                       for f, a in tbl.items()}
+                for vkey, tbl in bakes.items()}
+        ints, floats, layout = self._upload(mine)
+        audio = self._program(_unpack_bakes(ints, floats, layout), t0, nb,
+                              is_scan, mesh)
+        self._apply_carries(new_carries)
+        self.t = t0 + nb_total * self.bl
+        self.graph.t = self.t
+        self._break_prebake_chain()  # sharded windows bake live
+        self.sharded_windows += 1
+        return audio
+
     def _bake_all(
         self, fb: FlowwBank, t0: int, nb: int,
         carries: dict[int, Any] | None = None,
@@ -1236,18 +1294,23 @@ class CompiledGraph:
             nb, self.bl,
         )
 
-    def _program(self, bakes, t0: int, nb: int, is_scan: bool) -> torch.Tensor:
+    def _program(self, bakes, t0: int, nb: int, is_scan: bool,
+                 mesh=None) -> torch.Tensor:
+        """The window program over nb blocks from graph time t0; under a
+        mesh, this rank's nb blocks of the window, from the global frame
+        t0 + rank*nb*bl (compile.py:1641-1656)."""
         bl = self.bl
         T = nb * bl
+        tf = t0 if mesh is None else t0 + mesh.rank * T  # first frame
         bufs: dict[int, torch.Tensor] = {}
         ns = self.num_state
         fx_params = self._pack_fx() if self._has_fx else {}
         if self._uses_frames:
-            frames = torch.arange(t0, t0 + T, dtype=torch.int64,
+            frames = torch.arange(tf, tf + T, dtype=torch.int64,
                                   device=self.device)
         if self._uses_time:
-            ttab = self._time_table(t0 + T)
-            time2d = ttab[t0:t0 + T].reshape(nb, bl)
+            ttab = self._time_table(tf + T)
+            time2d = ttab[tf:tf + T].reshape(nb, bl)
             ib = ttab[:bl]  # f32(i)/f32(sr), i in block
         for vi in self.order:
             st = self.statics[vi]
@@ -1273,18 +1336,18 @@ class CompiledGraph:
                 xr = x.reshape(nb, bl, 2)
                 if is_scan:
                     outr, ns[f"{vi}.scan_max"] = mix.normalize_scan(
-                        xr, ns[f"{vi}.max"], ns[f"{vi}.scan_max"]
+                        xr, ns[f"{vi}.max"], ns[f"{vi}.scan_max"], mesh
                     )
                 else:
                     outr, ns[f"{vi}.max"] = mix.normalize_live(
-                        xr, ns[f"{vi}.max"]
+                        xr, ns[f"{vi}.max"], mesh
                     )
                 out = outr.reshape(T, 2)
             elif kind == G.SAMPLELOOP:
-                out = sampler.sample_loop(self.samples[st.sample_pos], t0, T)
+                out = sampler.sample_loop(self.samples[st.sample_pos], tf, T)
             elif kind == G.SAMPLEMULTI:
                 begins, vels = voices.compute_begin_vel(
-                    bakes[key], t0, nb, bl, st.sample_len
+                    bakes[key], tf, nb, bl, st.sample_len
                 )
                 out = voices.voice_mix_stereo(
                     self.samples_padded[st.sample_pos], begins, vels, vels,
@@ -1316,14 +1379,14 @@ class CompiledGraph:
             elif kind == G.BANDPASS:
                 out, ns[f"{vi}.bp"] = filters.band_pass_timeline(
                     x, ns[f"{vi}.bp"], st.lgamma, st.hgamma, st.pass_mode,
-                    self._wets[vi],
+                    self._wets[vi], mesh,
                 )
             elif st.fx_skip:  # G.PLUGINFX with wet < 1e-4
                 out = x  # the input passes, the state stays as it was
             else:  # G.PLUGINFX
                 y, ns[f"{vi}.fx"] = fx.EFFECTS[st.fx_kind].process(
                     x, ns[f"{vi}.fx"], fx_params.get(key, {}), self.sr,
-                    dict(st.fx_static),
+                    dict(st.fx_static), mesh,
                 )
                 out = x + self._wets[vi] * (y - x)
             bufs[vi] = mix.post(out, self._angles[vi], self._gains[vi])

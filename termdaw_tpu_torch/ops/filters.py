@@ -1,8 +1,7 @@
 """Band-pass / band-cut filter: paired 1-pole low+high IIRs.
 
-Port of the single-device part of termdaw_tpu/ops/filters.py
-(`gamma_from_cutoff`, `BandPassState`, `band_pass_timeline` with
-`axis_name=None`). Reference semantics (extensions.rs:70-79, 173-194,
+Port of termdaw_tpu/ops/filters.py (`gamma_from_cutoff`, `BandPassState`,
+`band_pass_timeline`). Reference semantics (extensions.rs:70-79, 173-194,
 653-689):
 
 * gamma = 1 - e^(-2*pi*fc/sr), cutoffs clamped to [0, 20kHz];
@@ -22,8 +21,7 @@ The four lanes (low/high x L/R) run as one first-order affine recurrence
 y = (1-g)*y_prev + g*x through ops/scan.affine_scan (the hand-written
 CUDA kernel on the card).
 
-The effects' building blocks, single device (the `axis_name` branches,
-`exclusive_total` and the sharded halo are not ported):
+The effects' building blocks:
 
 * `first_order_scan` (filters.py:158-175): a one-pole IIR through
   ops/scan.affine_scan, returning the window and its last value;
@@ -41,6 +39,23 @@ The effects' building blocks, single device (the `axis_name` branches,
   hand-written kernel csrc/biquad_seq.cu (counter `biquad_seq_launches`)
   or raises; on CPU tensors it runs `biquad_seq_plain`, a per-frame
   float32 numpy loop. The two are bit-identical.
+
+Under timeline sharding (a `mesh`, parallel/mesh.py; the reference's
+`axis_name`) the window is each rank's block range of one global stream:
+
+* `exclusive_total` (filters.py:128-155) gathers each rank's fold of a
+  monoid scan and returns the fold of the earlier ranks (`pre`, which
+  seeds this rank's scan) and of all of them (`tot`, the next window's
+  carried state, equal on every rank); the folds come from
+  ops/scan.*_summary and compose in float64;
+* `first_order_scan`, `band_pass_timeline` (the global first frame from
+  rank 0) and `_first_order_complex` take their seeds from it;
+* `prev_frames` gathers the last M frames of every rank when T >= M, or
+  the whole slices when T < M;
+* `biquad_apply` reads its 2-frame halo from `prev_frames` and recovers
+  the global y[T-2] by the clamped complex division of the reference; it
+  takes the parallel cascade even where the exact lane is pinned
+  (filters.py:479), so the exact lane never runs sharded.
 """
 
 from __future__ import annotations
@@ -54,7 +69,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .scan import affine_scan, complex_affine_scan
+from ..parallel.mesh import Mesh, all_gather
+from .scan import (
+    _affine, _caffine, affine_scan, affine_summary, complex_affine_scan,
+    complex_summary,
+)
 
 
 def gamma_from_cutoff(cut_hz: float, sr: int) -> float:
@@ -82,8 +101,11 @@ def band_pass_timeline(
     hgamma: float,
     pass_mode: bool,
     wet: torch.Tensor,         # 0-d f32
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, BandPassState]:
-    """Filter a [F, 2] window. Returns (out, new_state)."""
+    """Filter a [F, 2] window (this rank's slice under a mesh, primed from
+    the global first frame, rank 0's). Returns (out, new_state); the state
+    is the global stream's, equal on every rank."""
     g32 = np.asarray([lgamma, lgamma, hgamma, hgamma], np.float32)
     lmul = 0.0 if g32[0] == 0.0 else 1.0
     hmul = 0.0 if g32[2] == 0.0 else 1.0
@@ -92,10 +114,15 @@ def band_pass_timeline(
         skip = torch.ones_like(skip)
     pass_mul = 1.0 if pass_mode else 0.0
 
-    y0 = torch.where(state.first, x[0].repeat(2), state.prevs)  # [4]
+    x_first = x[0] if mesh is None else all_gather(x[0], mesh)[0]
+    y0 = torch.where(state.first, x_first.repeat(2), state.prevs)  # [4]
     g = torch.from_numpy(g32).to(x.device)
     b = g * torch.cat([x, x], dim=1)  # [F, 4] lanes lL lR hL hR
-    y = affine_scan(b, 1.0 - g, y0)
+    if mesh is None:
+        y = affine_scan(b, 1.0 - g, y0)
+        final = y[-1]
+    else:
+        y, final = _affine_sharded(b, 1.0 - g, y0, mesh)
 
     lp = y[:, 0:2]
     hp = y[:, 2:4]
@@ -104,14 +131,48 @@ def band_pass_timeline(
     out = cut * (1.0 - pass_mul) + pas * pass_mul
     out = torch.where(skip, x, out)
     new_state = BandPassState(
-        prevs=torch.where(skip, state.prevs, y[-1]),
+        prevs=torch.where(skip, state.prevs, final),
         first=torch.logical_and(skip, state.first),
     )
     return out, new_state
 
 
 # ---------------------------------------------------------------------------
-# the effects' building blocks (single device)
+# cross-rank boundary composition (timeline sharding)
+# ---------------------------------------------------------------------------
+
+def exclusive_total(combine, identity: tuple, summary: tuple, mesh: Mesh):
+    """For a monoid scan sharded over the ranks: given this rank's fold
+    `summary` (a tuple of equally shaped tensors), return (pre, tot):
+    `pre` the fold of every earlier rank's summary (the identity on rank
+    0), `tot` the fold of all of them, equal on every rank. Applied to the
+    carried global seed, `pre` seeds this rank's scan and `tot` is the
+    next window's state. One all_gather of the summaries; the folds run in
+    float64 in rank order."""
+    g = all_gather(torch.stack([s.double() for s in summary]), mesh)
+    tot = tuple(torch.full_like(g[0, k], ident)
+                for k, ident in enumerate(identity))
+    pre = tot
+    for j in range(mesh.size):
+        tot = combine(tot, tuple(g[j, k] for k in range(len(identity))))
+        if j == mesh.rank - 1:
+            pre = tot
+    return pre, tot
+
+
+def _affine_sharded(b: torch.Tensor, a: torch.Tensor, y0: torch.Tensor,
+                    mesh: Mesh):
+    """y = a*y_prev + b over this rank's rows b [T, C] of the global stream
+    whose y[-1] = y0 [C]: (y [T, C], the global stream's last y [C])."""
+    (a_pre, b_pre), (a_tot, b_tot) = exclusive_total(
+        _affine, (1.0, 0.0), affine_summary(b, a), mesh)
+    y0d = y0.double()
+    y = affine_scan(b, a, (a_pre * y0d + b_pre).float())
+    return y, (a_tot * y0d + b_tot).float()
+
+
+# ---------------------------------------------------------------------------
+# the effects' building blocks
 # ---------------------------------------------------------------------------
 
 def lanes(v, C: int, device: torch.device) -> torch.Tensor:
@@ -122,21 +183,36 @@ def lanes(v, C: int, device: torch.device) -> torch.Tensor:
     return torch.full((C,), float(v), dtype=torch.float32, device=device)
 
 
-def first_order_scan(x: torch.Tensor, a, y0: torch.Tensor):
+def first_order_scan(x: torch.Tensor, a, y0: torch.Tensor,
+                     mesh: Mesh | None = None):
     """One-pole IIR y[i] = a*y[i-1] + x[i] over x [T, C] with y[-1] = y0
-    [C]; `a` is a scalar or [C]. Returns (y [T, C], y[-1])."""
-    y = affine_scan(x.contiguous(), lanes(a, x.shape[1], x.device),
-                    y0.contiguous())
+    [C]; `a` is a scalar or [C]. Returns (y [T, C], the last y), the last
+    y of the global stream under a mesh."""
+    a = lanes(a, x.shape[1], x.device)
+    if mesh is not None:
+        return _affine_sharded(x.contiguous(), a, y0.contiguous(), mesh)
+    y = affine_scan(x.contiguous(), a, y0.contiguous())
     return y, y[-1]
 
 
-def prev_frames(x: torch.Tensor, tail: torch.Tensor):
-    """The M = tail.shape[0] frames before x (the carried tail) and the new
-    last-M tail of the stream, concat(tail, x)[T:T+M], which reaches back
-    into the old tail when T < M."""
-    T = x.shape[0]
-    xcat = torch.cat([tail, x])
-    return tail, xcat[T:T + tail.shape[0]]
+def prev_frames(x: torch.Tensor, tail: torch.Tensor,
+                mesh: Mesh | None = None):
+    """The M = tail.shape[0] frames of the global stream just before x
+    (the carried tail on rank 0), and the stream's new last-M tail,
+    concat(tail, x)[T:T+M] single device, which reaches back into the old
+    tail when T < M. Under a mesh: one all_gather of every rank's last M
+    frames when T >= M, else of the whole slices."""
+    T, C = x.shape
+    M = tail.shape[0]
+    if mesh is None:
+        xcat = torch.cat([tail, x])
+        return tail, xcat[T:T + M]
+    if T >= M:
+        last = all_gather(x[-M:], mesh)  # [n, M, C]
+        halo = tail if mesh.rank == 0 else last[mesh.rank - 1]
+        return halo, last[-1]
+    flat = torch.cat([tail, all_gather(x, mesh).reshape(mesh.size * T, C)])
+    return flat[mesh.rank * T:mesh.rank * T + M], flat[-M:]
 
 
 def biquad_coefs(kind: str, fc: float, sr: int,
@@ -270,7 +346,32 @@ def _exact_biquad() -> bool:
     return exact_biquad_env() if pinned is None else pinned
 
 
-def biquad_apply(x: torch.Tensor, coefs: tuple, state: torch.Tensor):
+def _first_order_complex(f_r, f_i, p_r, p_i, s_r, s_i,
+                         mesh: Mesh | None):
+    """u[n] = p*u[n-1] + f[n] with u[-1] = s, complex as (re, im) real
+    lanes; f [T, C], p and s [C]. Returns (u_r, u_i, ufin_r, ufin_i): the
+    window and the global stream's final value (filters.py:316-354); under
+    a mesh the seed entering this rank's slice is the earlier ranks' fold
+    applied to s."""
+    if mesh is None:
+        u_r, u_i = complex_affine_scan(f_r, f_i, p_r, p_i, s_r, s_i)
+        return u_r, u_i, u_r[-1], u_i[-1]
+    pre, tot = exclusive_total(_caffine, (1.0, 0.0, 0.0, 0.0),
+                               complex_summary(f_r, f_i, p_r, p_i), mesh)
+    sr, si = s_r.double(), s_i.double()
+
+    def apply(m):
+        mar, mai, mbr, mbi = m
+        return ((mar * sr - mai * si + mbr).float(),
+                (mar * si + mai * sr + mbi).float())
+
+    l_r, l_i = apply(pre)
+    u_r, u_i = complex_affine_scan(f_r, f_i, p_r, p_i, l_r, l_i)
+    return (u_r, u_i, *apply(tot))
+
+
+def biquad_apply(x: torch.Tensor, coefs: tuple, state: torch.Tensor,
+                 mesh: Mesh | None = None):
     """Direct-form-1 biquad over a window x [T, C]; exact cross-window
     state [4, C]. `coefs` = (b0, b1, b2, a1, a2), each an f32 tensor [C]
     (or 0-d) on x's device: per-channel coefficients let independent
@@ -285,17 +386,27 @@ def biquad_apply(x: torch.Tensor, coefs: tuple, state: torch.Tensor):
 
         u[n] = p1*u[n-1] + f[n],    y[n] = p2*y[n-1] + u[n],
 
-    each one complex_affine_scan (filters.py:444-534, single device).
-    Where the exact lane is pinned or asked for, biquad_apply_sequential
-    runs instead (filters.py:479-480)."""
-    if _exact_biquad():
+    each one complex_affine_scan (filters.py:444-534). Where the exact
+    lane is pinned or asked for, biquad_apply_sequential runs instead
+    (filters.py:479-480), on one device only. Under a mesh x is this
+    rank's slice, the feed-forward taps before it come from prev_frames
+    and the returned state is the global stream's."""
+    if mesh is None and _exact_biquad():
         return biquad_apply_sequential(x, coefs, state)
     T, C = x.shape
     b0, b1, b2, a1, a2 = coefs
-    x1 = torch.cat([state[0:1], x[:-1]])
-    x2 = torch.cat([state[1:2], x1[:-1]]) if T > 1 else \
-        state[1:2].expand(T, C)
-    new_x1, new_x2 = x[-1], (x1[-1] if T > 1 else state[0])
+    if mesh is None:
+        x1 = torch.cat([state[0:1], x[:-1]])
+        x2 = torch.cat([state[1:2], x1[:-1]]) if T > 1 else \
+            state[1:2].expand(T, C)
+        new_x1, new_x2 = x[-1], (x1[-1] if T > 1 else state[0])
+    else:
+        # the 2 global-stream frames before this slice
+        halo, new_tail = prev_frames(x, torch.stack([state[1], state[0]]),
+                                     mesh)
+        xcat = torch.cat([halo, x])  # [T+2, C]
+        x1, x2 = xcat[1:T + 1], xcat[0:T]
+        new_x1, new_x2 = new_tail[1], new_tail[0]
     f = b0 * x + b1 * x1 + b2 * x2  # [T, C]
 
     disc = a1 * a1 - 4.0 * a2
@@ -312,11 +423,19 @@ def biquad_apply(x: torch.Tensor, coefs: tuple, state: torch.Tensor):
     # u[-1] = y[-1] - p2*y[-2] (from y[n] = p2*y[n-1] + u[n])
     u0r = y1 - p2r * y2
     u0i = -p2i * y2
-    u_r, u_i = complex_affine_scan(f, torch.zeros_like(f), p1r, p1i, u0r,
-                                   u0i)
-    y_r, _ = complex_affine_scan(u_r, u_i, p2r, p2i, y1.contiguous(),
-                                 torch.zeros_like(y1))
+    u_r, u_i, ufin_r, ufin_i = _first_order_complex(
+        f, torch.zeros_like(f), p1r, p1i, u0r, u0i, mesh)
+    y_r, _, yfin_r, yfin_i = _first_order_complex(
+        u_r, u_i, p2r, p2i, y1.contiguous(), torch.zeros_like(y1), mesh)
     # y is real by construction; the imaginary lane carries only rounding
-    new_y2 = y_r[-2] if T > 1 else state[2]
-    new_state = torch.stack([new_x1, new_x2, y_r[-1], new_y2])
+    if mesh is None:
+        new_y2 = y_r[-2] if T > 1 else state[2]
+    else:
+        # the global y[T-2] is not on this rank: from y[T-1] = p2*y[T-2] +
+        # u[T-1], by a complex division with |p2|^2 = a2 clamped (tiny only
+        # for a nearly first-order section, where y[n-2] hardly counts)
+        dr, di = yfin_r - ufin_r, yfin_i - ufin_i
+        den = torch.clamp(p2r * p2r + p2i * p2i, min=1e-12)
+        new_y2 = (dr * p2r + di * p2i) / den
+    new_state = torch.stack([new_x1, new_x2, yfin_r, new_y2])
     return y_r, new_state

@@ -1,8 +1,7 @@
 """Native effect plugins: the first-party effect suite behind `load_lv2`.
 
-Port of termdaw_tpu/ops/fx.py, single device (the `axis_name` branches,
-`exclusive_total` and the sharded halo are not ported). The registry data
-is carried over unchanged: the defaults, the static params, the URI hints
+Port of termdaw_tpu/ops/fx.py. The registry data is carried over
+unchanged: the defaults, the static params, the URI hints
 (fx.py:556-567) and the parameter aliases (fx.py:570-583). Every effect is
 timeline-parallel, as in the reference:
 
@@ -27,6 +26,16 @@ cast to float32 once.
 
 States are dicts of device tensors (delay tails, scan carries; tuples of
 them for the reverb's lines), so windows chain exactly.
+
+Every `process` takes an optional `mesh` (parallel/mesh.py; the
+reference's `axis_name`): x is then this rank's slice of the window and
+the returned state is the global stream's, equal on every rank. The scans
+seed from ops/filters.exclusive_total (`max_decay_scan_sharded`,
+fx.py:71-89; `first_order_scan`; `feedback_line` per residue class,
+fx.py:128-149), the delayed reads take their halo from
+ops/filters.prev_frames, the LFOs start at this rank's global frame
+(`_local_phase`, fx.py:287-306) and the eq3's biquads run sharded
+(ops/filters.biquad_apply). Bitcrush is elementwise.
 """
 
 from __future__ import annotations
@@ -38,11 +47,15 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh
 from .filters import (
-    biquad_apply, biquad_coefs, biquad_init_state, first_order_scan, lanes,
-    prev_frames,
+    biquad_apply, biquad_coefs, biquad_init_state, exclusive_total,
+    first_order_scan, lanes, prev_frames,
 )
-from .scan import affine_scan, max_decay_scan
+from .scan import (
+    MAX_DECAY_IDENTITY, _affine, _max_decay, affine_scan, max_decay_scan,
+    max_decay_summary,
+)
 
 F32 = torch.float32
 
@@ -58,22 +71,77 @@ def _const(v: float, like: torch.Tensor) -> torch.Tensor:
 # building blocks
 # ---------------------------------------------------------------------------
 
-def feedback_line(x: torch.Tensor, tail: torch.Tensor, g, D: int):
+def max_decay_scan_sharded(x: torch.Tensor, r: torch.Tensor,
+                           y0: torch.Tensor, mesh: Mesh | None):
+    """y = max(x, r*y_prev) over x [T, C] with y[-1] = y0 [C], r [C]:
+    (y, the global stream's last y), fx.py:71-89. Under a mesh the seed
+    entering this rank's rows is the earlier ranks' fold applied to y0."""
+    if mesh is None:
+        y = max_decay_scan(x, r, y0)
+        return y, y[-1]
+    (a_pre, b_pre), (a_tot, b_tot) = exclusive_total(
+        _max_decay, (1.0, MAX_DECAY_IDENTITY), max_decay_summary(x, r), mesh)
+    y0d = y0.double()
+    y = max_decay_scan(x, r, torch.maximum(b_pre, a_pre * y0d).float())
+    return y, torch.maximum(b_tot, a_tot * y0d).float()
+
+
+def feedback_line(x: torch.Tensor, tail: torch.Tensor, g, D: int,
+                  mesh: Mesh | None = None):
     """y[t] = x[t] + g * y[t-D] over a window, with y[-D:] given by `tail`.
 
     x [T, C], tail [D, C] -> (y [T, C], new_tail [D, C]). The D residue
     classes mod D are independent first-order recurrences: x padded to
     [rows, D*C] rows is one affine_scan with a = g on every lane and
-    y[-1] = tail (fx.py:96-126, single device)."""
+    y[-1] = tail (fx.py:96-126).
+
+    Under a mesh (fx.py:128-149) x is rank i's slice of the global window
+    and its position q has the class (i*T + q) mod D, so x sits at the
+    offset o = (i*T) mod D of the padded rows. The reference pads with
+    identity maps (a = 1, b = 0); the kernel takes one `a` a lane, so here
+    every cell has a = g and: the fold's B of each class is read at its
+    last real row of a launch from y = 0 (the leading pad cells hold b = 0
+    and leave B as it is), its A is g^(real rows) in float64, and in the
+    seeded launch a class c < o starts from 0 with its seed in b of its pad
+    cell, the others from their seed."""
     T, C = x.shape
-    rows = -(-T // D)
-    pad = rows * D - T
-    xp = torch.cat([x, x.new_zeros(pad, C)]) if pad else x
-    xr = xp.reshape(rows, D * C).contiguous()
-    y = affine_scan(xr, lanes(g, D * C, x.device),
-                    tail.reshape(D * C).contiguous())
-    y = y.reshape(rows * D, C)[:T]
-    new_tail = torch.cat([tail, y])[T:T + D]
+    gl = lanes(g, D * C, x.device)
+    if mesh is None:
+        rows = -(-T // D)
+        pad = rows * D - T
+        xp = torch.cat([x, x.new_zeros(pad, C)]) if pad else x
+        y = affine_scan(xp.reshape(rows, D * C).contiguous(), gl,
+                        tail.reshape(D * C).contiguous())
+        y = y.reshape(rows * D, C)[:T]
+        new_tail = torch.cat([tail, y])[T:T + D]
+        return y, new_tail
+
+    o = (mesh.rank * T) % D
+    rows = -(-(o + T) // D)
+    after = x.new_zeros(rows * D - o - T, C)
+    # each class's real cells (o <= cell < o + T): count and last row
+    # (device arithmetic: no host copy, no sync)
+    c = torch.arange(D, device=x.device)
+    first = c + D * (c < o)
+    last = (o + T - 1) - torch.remainder(o + T - 1 - c, D)
+    n_real = torch.clamp((last - first) // D + 1, min=0)
+    last_row = torch.clamp(last, min=0) // D
+
+    y_id = affine_scan(
+        torch.cat([x.new_zeros(o, C), x, after]).reshape(rows, D * C),
+        gl, torch.zeros_like(gl)).reshape(rows, D, C)
+    B = torch.where((n_real > 0)[:, None], y_id[last_row, c], 0.0)
+    A = gl.double().reshape(D, C) ** n_real[:, None]
+    (a_pre, b_pre), (a_tot, b_tot) = exclusive_total(
+        _affine, (1.0, 0.0), (A, B), mesh)
+    tail64 = tail.double()
+    seed = (a_pre * tail64 + b_pre).float()  # [D, C] a class
+    y = affine_scan(
+        torch.cat([seed[:o], x, after]).reshape(rows, D * C),
+        gl, torch.cat([seed.new_zeros(o, C), seed[o:]]).reshape(D * C),
+    ).reshape(rows * D, C)[o:o + T]
+    yfin = (a_tot * tail64 + b_tot).float()  # each class's last value
+    new_tail = yfin[torch.remainder(mesh.size * T + c, D)]
     return y, new_tail
 
 
@@ -91,13 +159,20 @@ def delayed_read(x: torch.Tensor, tail: torch.Tensor,
     return xcat[p0] * (1 - frac) + xcat[p0 + 1] * frac
 
 
-def _local_phase(ph0: torch.Tensor, rate: torch.Tensor, T: int, sr: int):
+def _local_phase(ph0: torch.Tensor, rate: torch.Tensor, T: int, sr: int,
+                 mesh: Mesh | None = None):
     """LFO phase of every frame (radians) and the next window's start
     phase, wrapped to [0, 2*pi) so an f32 clock never loses resolution
-    (fx.py:287-306, single device)."""
+    (fx.py:287-306). Under a mesh rank i starts at ph0 + w*(i*T) and the
+    next window at ph0 + w*(n*T), in the reference's f32 operations."""
     w = 2.0 * math.pi * rate / _const(sr, rate)  # rad per frame
-    ph_next = ph0 + w * float(T)
-    return ph0 + w * torch.arange(T, dtype=F32, device=rate.device), \
+    if mesh is None:
+        base = ph0
+        ph_next = ph0 + w * float(T)
+    else:
+        base = ph0 + w * (_const(mesh.rank, rate) * _const(T, rate))
+        ph_next = ph0 + w * _const(mesh.size * T, rate)
+    return base + w * torch.arange(T, dtype=F32, device=rate.device), \
         torch.remainder(ph_next, 2.0 * math.pi)
 
 
@@ -120,7 +195,8 @@ class EffectDef:
     kind: str
     defaults: dict
     init_state: Callable  # (sr, static, device) -> state dict
-    process: Callable     # (x, state, params, sr, static) -> (y, state')
+    # (x, state, params, sr, static, mesh=None) -> (y, state')
+    process: Callable
     # parameter names bound at graph build (host floats: delay-line
     # lengths, biquad coefficients); changing one rebuilds the graph at
     # refresh. All other params are 0-d device tensors each window.
@@ -157,7 +233,7 @@ def _reverb_init(sr: int, static: dict, device) -> dict:
     }
 
 
-def _reverb_process(x, state, params, sr, static):
+def _reverb_process(x, state, params, sr, static, mesh=None):
     combs, allp = _reverb_lines(sr)
     room = torch.clamp(params["room"], 0.0, 0.98)
     damp = torch.clamp(params["damp"], 0.0, 1.0)
@@ -165,7 +241,7 @@ def _reverb_process(x, state, params, sr, static):
     a = damp * 0.8
     xin = x * 0.25
     b = (1.0 - a) * xin
-    damped, new_damp_y0 = first_order_scan(b, a, state["damp_y0"])
+    damped, new_damp_y0 = first_order_scan(b, a, state["damp_y0"], mesh)
 
     acc = torch.zeros_like(x)
     new_comb_tails = []
@@ -175,7 +251,7 @@ def _reverb_process(x, state, params, sr, static):
         # L combs feed L, R combs feed R: each comb is a mono line
         ch = i % 2
         y, tail = feedback_line(damped[:, ch:ch + 1], state["comb_tails"][i],
-                                g, d)
+                                g, d, mesh)
         new_comb_tails.append(tail)
         acc[:, ch] += y[:, 0]
 
@@ -186,10 +262,10 @@ def _reverb_process(x, state, params, sr, static):
         # allpass: y[t] = g*y[t-D] + x[t-D] - g*x[t]
         gap = 0.5
         T = out.shape[0]
-        halo, x_tail = prev_frames(out, state["ap_x_tails"][i])
+        halo, x_tail = prev_frames(out, state["ap_x_tails"][i], mesh)
         xd = torch.cat([halo, out])[:T]  # x[t - D]
         u = xd - gap * out
-        y, ytail = feedback_line(u, state["ap_y_tails"][i], gap, d)
+        y, ytail = feedback_line(u, state["ap_y_tails"][i], gap, d, mesh)
         new_ap_x.append(x_tail)
         new_ap_y.append(ytail)
         out = y
@@ -213,14 +289,14 @@ def _chorus_init(sr: int, static: dict, device) -> dict:
     return {"tail": _zeros(device, m, 2), "phase": _zeros(device)}
 
 
-def _chorus_process(x, state, params, sr, static):
+def _chorus_process(x, state, params, sr, static, mesh=None):
     rate = torch.clamp(params["rate"], 0.01, 20.0)
     depth_ms = torch.clamp(params["depth"], 0.0, 15.0)
     base_ms = torch.clamp(params["base"], 1.0, 20.0)
     voices = 3
     T = x.shape[0]
-    phase, ph_next = _local_phase(state["phase"], rate, T, sr)
-    halo, new_tail = prev_frames(x, state["tail"])
+    phase, ph_next = _local_phase(state["phase"], rate, T, sr, mesh)
+    halo, new_tail = prev_frames(x, state["tail"], mesh)
     out = torch.zeros_like(x)
     for v in range(voices):
         ph = 2.0 * math.pi * (v / voices)
@@ -239,7 +315,7 @@ def _comp_init(sr: int, static: dict, device) -> dict:
     return {"env": _zeros(device), "smooth": _zeros(device)}
 
 
-def _comp_process(x, state, params, sr, static):
+def _comp_process(x, state, params, sr, static, mesh=None):
     attack_ms = torch.clamp(params["attack"], min=0.01)
     release_ms = torch.clamp(params["release"], min=1.0)
     thresh_db = params["threshold"]
@@ -249,12 +325,13 @@ def _comp_process(x, state, params, sr, static):
 
     level = torch.amax(torch.abs(x), dim=1)  # [T]
     r = torch.exp(-1.0 / (release_ms * 0.001 * sr))
-    env2 = max_decay_scan(level[:, None].contiguous(), r.reshape(1),
-                          state["env"].reshape(1))
+    env2, env_fin = max_decay_scan_sharded(
+        level[:, None].contiguous(), r.reshape(1), state["env"].reshape(1),
+        mesh)
     env = env2[:, 0]
     a = torch.exp(-1.0 / (attack_ms * 0.001 * sr))
     smooth2, smooth_fin = first_order_scan(
-        ((1.0 - a) * env)[:, None], a, state["smooth"].reshape(1)
+        ((1.0 - a) * env)[:, None], a, state["smooth"].reshape(1), mesh
     )
     smooth = smooth2[:, 0]
 
@@ -272,7 +349,7 @@ def _comp_process(x, state, params, sr, static):
     )
     gain = torch.pow(10.0, (gr_db + makeup_db) / _const(20.0, x))
     y = x * gain[:, None]
-    return y, {"env": env[-1], "smooth": smooth_fin[0]}
+    return y, {"env": env_fin[0], "smooth": smooth_fin[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -283,12 +360,12 @@ def _tape_init(sr: int, static: dict, device) -> dict:
     return {"lp_y0": _zeros(device, 2)}
 
 
-def _tape_process(x, state, params, sr, static):
+def _tape_process(x, state, params, sr, static, mesh=None):
     drive = torch.clamp(params["drive"], 0.1, 10.0)
     cutoff = torch.clamp(params["cutoff"], 500.0, 20000.0)
     sat = torch.tanh(x * drive) / torch.tanh(drive)
     g = 1.0 - torch.exp(-2.0 * math.pi * cutoff / _const(sr, x))
-    y, y_fin = first_order_scan(g * sat, 1.0 - g, state["lp_y0"])
+    y, y_fin = first_order_scan(g * sat, 1.0 - g, state["lp_y0"], mesh)
     return y, {"lp_y0": y_fin}
 
 
@@ -309,12 +386,12 @@ def _delay_init(sr: int, static: dict, device) -> dict:
     return {"tail": _zeros(device, _delay_samples(sr, static), 2)}
 
 
-def _delay_process(x, state, params, sr, static):
+def _delay_process(x, state, params, sr, static, mesh=None):
     # exact feedback comb y[t] = x[t] + fb * y[t-D]; `time` is static, so
     # D is a host int (it quantizes to whole samples at bind)
     fb = torch.clamp(params["feedback"], 0.0, 0.95)
     y, tail = feedback_line(x, state["tail"], fb,
-                            _delay_samples(sr, static))
+                            _delay_samples(sr, static), mesh)
     return y, {"tail": tail}
 
 
@@ -342,7 +419,7 @@ def _eq3_coefs(sr: int, f_lo: float, f_hi: float, device):
     return tuple(both[0]), tuple(both[1])
 
 
-def _eq3_process(x, state, params, sr, static):
+def _eq3_process(x, state, params, sr, static, mesh=None):
     """Crossover frequencies are static params bound at graph build (the
     biquad coefficients are host-computed); gains are traced."""
     # crossovers clamped away from Nyquist where the biquad degenerates
@@ -354,12 +431,12 @@ def _eq3_process(x, state, params, sr, static):
     g_hi = torch.pow(10.0, params["high_gain"] / twenty)
     c_lo, c_hi = _eq3_coefs(sr, f_lo, f_hi, x.device)
     xx = torch.cat([x, x], dim=1)  # [T, 4]
-    t0, s0 = biquad_apply(xx, c_lo, state["st0"])
-    t1, s1 = biquad_apply(t0, c_lo, state["st1"])
+    t0, s0 = biquad_apply(xx, c_lo, state["st0"], mesh)
+    t1, s1 = biquad_apply(t0, c_lo, state["st1"], mesh)
     low, upper = t1[:, 0:2], t1[:, 2:4]
     uu = torch.cat([upper, upper], dim=1)
-    t2, s2 = biquad_apply(uu, c_hi, state["st2"])
-    t3, s3 = biquad_apply(t2, c_hi, state["st3"])
+    t2, s2 = biquad_apply(uu, c_hi, state["st2"], mesh)
+    t3, s3 = biquad_apply(t2, c_hi, state["st3"], mesh)
     mid, high = t3[:, 0:2], t3[:, 2:4]
     y = low * g_lo + mid * g_mid + high * g_hi
     return y, {"st0": s0, "st1": s1, "st2": s2, "st3": s3}
@@ -377,13 +454,13 @@ def _flanger_init(sr: int, static: dict, device) -> dict:
     return {"tail": _zeros(device, m, 2), "phase": _zeros(device)}
 
 
-def _flanger_process(x, state, params, sr, static):
+def _flanger_process(x, state, params, sr, static, mesh=None):
     rate = torch.clamp(params["rate"], 0.02, 10.0)
     depth_ms = torch.clamp(params["depth"], 0.1, 5.0)
     base_ms = torch.clamp(params["base"], 0.5, 6.0)
     T = x.shape[0]
-    phase, ph_next = _local_phase(state["phase"], rate, T, sr)
-    halo, new_tail = prev_frames(x, state["tail"])
+    phase, ph_next = _local_phase(state["phase"], rate, T, sr, mesh)
+    halo, new_tail = prev_frames(x, state["tail"], mesh)
     lfo = torch.sin(phase)
     delay = (base_ms + depth_ms * (0.5 + 0.5 * lfo)) * (sr / 1000.0)
     wet = delayed_read(x, halo, delay)
@@ -399,7 +476,7 @@ def _bitcrush_init(sr: int, static: dict, device) -> dict:
     return {}
 
 
-def _bitcrush_process(x, state, params, sr, static):
+def _bitcrush_process(x, state, params, sr, static, mesh=None):
     bits = torch.clamp(params["bits"], 1.0, 16.0)
     levels = torch.pow(2.0, bits - 1.0)
     y = torch.round(x * levels) / levels

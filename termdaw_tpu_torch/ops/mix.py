@@ -11,13 +11,20 @@ Port of termdaw_tpu/ops/mix.py (same arithmetic in the same order):
   is `torch.cummax` over block maxima (extensions.rs:321-329).
 
 Gain and angle are 0-dim float32 tensors on the render device, so the
-skip thresholds are `torch.where` selects and need no host sync. The
-reference's `axis_name` (timeline sharding) branches are not ported.
+skip thresholds are `torch.where` selects and need no host sync.
+
+Under timeline sharding (a `mesh`, parallel/mesh.py; the reference's
+`axis_name`, mix.py:82-125) each rank holds its own block range: the live
+Normalize gathers every rank's block maxima (one float a block) and runs
+the same prefix max on each rank, which scales its own blocks; the scan
+pass takes the window peak with `pmax`. Both are exact.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel.mesh import Mesh, all_gather, pmax
 
 DEG_TO_RAD_HALF = 0.5 * 0.01745329  # reference sample.rs:99 constant
 _FRAC = 0.7071067811865476
@@ -76,21 +83,32 @@ def block_maxima(x: torch.Tensor) -> torch.Tensor:
 
 
 def normalize_live(
-    x: torch.Tensor, max_in: torch.Tensor
+    x: torch.Tensor, max_in: torch.Tensor, mesh: Mesh | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Normal-render Normalize: block k is scaled by
-    1 / max(max_in, cummax(block_maxima)[0..k]). Returns (scaled
-    [nb, bl, 2], max_out 0-dim)."""
-    running = torch.cummax(block_maxima(x), dim=0).values
+    1 / max(max_in, cummax(block_maxima)[0..k]), k counted over the whole
+    window under a mesh. Returns (scaled [nb, bl, 2], max_out 0-dim,
+    equal on every rank)."""
+    bm = block_maxima(x)
+    if mesh is not None:
+        nb = bm.shape[0]
+        running = torch.cummax(all_gather(bm, mesh).reshape(-1), dim=0).values
+        running = torch.maximum(running, max_in)
+        mine = running[mesh.rank * nb:(mesh.rank + 1) * nb]
+        return x / mine[:, None, None], running[-1]
+    running = torch.cummax(bm, dim=0).values
     running = torch.maximum(running, max_in)
     return x / running[:, None, None], running[-1]
 
 
 def normalize_scan(
-    x: torch.Tensor, max_in: torch.Tensor, scan_max_in: torch.Tensor
+    x: torch.Tensor, max_in: torch.Tensor, scan_max_in: torch.Tensor,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Scan-pass Normalize: record the window peak into scan_max while
-    scaling by the frozen current max (extensions.rs:321-329 is_scan arm).
-    Returns (scaled, scan_max_out)."""
+    """Scan-pass Normalize: record the window peak (over every rank under
+    a mesh) into scan_max while scaling by the frozen current max
+    (extensions.rs:321-329 is_scan arm). Returns (scaled, scan_max_out)."""
     peak = torch.amax(block_maxima(x))
+    if mesh is not None:
+        peak = pmax(peak, mesh)
     return x / max_in, torch.maximum(peak, scan_max_in)

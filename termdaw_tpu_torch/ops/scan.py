@@ -30,6 +30,15 @@ The three recurrences:
 Types: every tensor float32 and contiguous; sequences [T, C], per-lane
 values [C]. The two forms associate the products differently, so they
 agree to float32 rounding, not bit for bit.
+
+Under timeline sharding (ops/filters.exclusive_total) each rank needs its
+shard's fold (A, B) per lane before its seeded scan: `affine_summary`,
+`max_decay_summary` and `complex_summary` take B from the same wrapper,
+launched with the monoid's identity seed (0, or -3.0e38 for the
+max-decay), as the last row of its output, and A, the lane's decay raised
+to the count of rows, in float64 (the kernels carry r^n in float64 too).
+A sharded scan is then two launches of the kernel: this one and the
+seeded one.
 """
 
 from __future__ import annotations
@@ -223,3 +232,30 @@ def complex_affine_scan(
     complex_scan_launch(f_r, f_i, p_r, p_i, s_r, s_i, u_r, u_i)
     complex_launches += 1
     return u_r, u_i
+
+
+# -- each shard's fold, for the sharded scans (ops/filters.exclusive_total)
+
+def affine_summary(b: torch.Tensor, a: torch.Tensor):
+    """The fold of the T maps y -> a*y + b[t] per lane: (A = a^T float64
+    [C], B = affine_scan from y0 = 0, last row, float32 [C])."""
+    B = affine_scan(b, a, torch.zeros_like(a))[-1]
+    return a.double() ** b.shape[0], B
+
+
+def max_decay_summary(x: torch.Tensor, r: torch.Tensor):
+    """The fold of the T max-decay steps per lane: (A = r^T float64 [C],
+    B = max_decay_scan from the identity -3.0e38, last row, [C])."""
+    B = max_decay_scan(x, r, torch.full_like(r, MAX_DECAY_IDENTITY))[-1]
+    return r.double() ** x.shape[0], B
+
+
+def complex_summary(f_r: torch.Tensor, f_i: torch.Tensor, p_r: torch.Tensor,
+                    p_i: torch.Tensor):
+    """The fold of the T complex maps u -> p*u + f[t] per lane, as
+    (A_r, A_i, B_r, B_i): A = p^T in complex128, B = complex_affine_scan
+    from u = 0, last row."""
+    z = torch.zeros_like(p_r)
+    u_r, u_i = complex_affine_scan(f_r, f_i, p_r, p_i, z, z)
+    A = torch.complex(p_r.double(), p_i.double()) ** f_r.shape[0]
+    return A.real, A.imag, u_r[-1], u_i[-1]

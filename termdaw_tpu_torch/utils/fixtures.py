@@ -298,12 +298,14 @@ def write_c5_project(d: Path, length_sec: float, sr: int, bl: int,
     return blob
 
 
-def load_state(d: Path, device, packets: bytes = b""):
-    """Refreshed port State of the project in d on `device`, with the
-    stream packets appended. Raises if the refresh did not load."""
+def load_state(d: Path, device, packets: bytes = b"", mesh=None):
+    """Refreshed port State of the project in d on `device` (sharding
+    over `mesh`, parallel/mesh.py, when one is given), with the stream
+    packets appended. Raises if the refresh did not load."""
     from ..engine.state import State
 
-    st = State(Config.read(Path(d) / "project.toml"), str(d), device=device)
+    st = State(Config.read(Path(d) / "project.toml"), str(d), device=device,
+               mesh=mesh)
     st.refresh()
     if not st.loaded:
         raise RuntimeError(f"project in {d} did not load")

@@ -16,6 +16,8 @@ from termdaw_tpu_torch import kernels
 from termdaw_tpu_torch.engine.player import Player
 from termdaw_tpu_torch.engine.sink import Sink
 from termdaw_tpu_torch.ops import filters, fx, scan, voices
+from termdaw_tpu_torch.parallel.mesh import gather
+from termdaw_tpu_torch.tools import shard_render
 from termdaw_tpu_torch.utils.fixtures import (
     load_state, read_wav_ints, write_c2_project, write_c3_project,
     write_c4_project, write_c5_project,
@@ -563,3 +565,42 @@ def test_chain_served_c5_render_on_card_bit_identical(cuda, tmp_path,
     assert live.compiled.served_windows == 0
     for got, w in zip(served, want):
         np.testing.assert_array_equal(got, w)
+
+
+# -- the sharded scans on the card: 2 ranks ------------------------------
+
+SHARD_T = 20000  # frames a rank: tiled scans, no feedback line's D divides it
+
+
+def _card_gather_rank(mesh):
+    whole = gather(torch.full((3, 2), float(mesh.rank), device=mesh.device),
+                   mesh)
+    return {"device": str(mesh.device),
+            "gathered": None if whole is None else whole.cpu().numpy()}
+
+
+def test_sharded_scans_on_two_ranks_sharing_the_card(cuda):
+    """tools/shard_render.scan_check on 2 ranks (gloo on cuda:0 with one
+    card): the sharded one-pole scan (slow poles to a = 0.9999), max-decay,
+    both eq3 biquad cascades (complex scans) and c4's 21 feedback lines
+    with CUDA tensors, against the plain scans over the whole input (the
+    one-pole's in float64): within 1e-5 of max |y| (the cascade 1e-4,
+    tests/subproc/sharded_biquad_check.py:31), final states equal on both
+    ranks and within 1e-4 (the cascade 1e-3), every sharded scan launching
+    its kernel twice on each rank (the summary, then the seeded scan); it
+    raises otherwise. `gather` brings both ranks' CUDA tensors over gloo
+    to rank 0 alone."""
+    from termdaw_tpu_torch.parallel import launch
+
+    rep = shard_render.scan_check(2, frames=(SHARD_T,))
+    got = rep["by_frames"][str(SHARD_T)]
+    assert got["feedback_offsets_min_max"][0] > 0
+    assert all(r == rep["launches_a_rank"] for r in got["launches_by_rank"])
+    assert rep["launches_a_rank"] == {"affine_scan": 44, "max_decay_scan": 2,
+                                      "complex_affine_scan": 8}
+    ranks = launch(_card_gather_rank, 2, backend="gloo", device="cuda",
+                   share_device=True, timeout_s=300)
+    assert [r["device"] for r in ranks] == ["cuda:0", "cuda:0"]
+    np.testing.assert_array_equal(
+        ranks[0]["gathered"], np.repeat([0.0, 1.0], 6).reshape(2, 3, 2))
+    assert ranks[1]["gathered"] is None

@@ -241,8 +241,28 @@ assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)
 ref = sorted(m for m in sys.modules
              if m == 'termdaw_tpu' or m.startswith('termdaw_tpu.'))
 assert not ref, ref
+sys.path.insert(0, {str(tmp_path)!r})
+import shard_job
+from termdaw_tpu_torch.parallel import launch
+ranks = launch(shard_job.render, 2, {str(tmp_path / 'c4')!r}, backend='gloo',
+               device='cpu', timeout_s=120)
+assert all(n == 1 for n, _ in ranks), ranks
+assert not any(loaded for _, loaded in ranks), ranks
 print('JAXFREE')
 """
+    # a sharded render on 2 ranks: each rank reports the modules it loaded
+    (tmp_path / "shard_job.py").write_text("""
+import sys
+from termdaw_tpu_torch.utils.fixtures import load_state
+
+
+def render(mesh, d):
+    st = load_state(d, mesh.device, mesh=mesh)
+    st.render()
+    loaded = sorted(m for m in sys.modules
+                    if m.split('.')[0] in ('jax', 'jaxlib', 'termdaw_tpu'))
+    return st.compiled.sharded_windows, loaded
+""")
     proc = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True,
         text=True, timeout=240, env=scrubbed_env(TERMDAW_SINK="null"),
