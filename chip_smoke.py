@@ -4,7 +4,14 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure exits non-zero without
-the final line:
+the final line. Every single-device window replays a CUDA graph captured
+from the window program (graph/compile.py's program cache), so a kernel
+wrapper counts each program's eager warm-up and its capture, never a
+replay. Each render below is gated on replays == windows (`replays`,
+`captures`) and on its wrapper counts being twice its programs' captured
+launches; the launches it reports are what ran on the card, the captured
+launches times the replays plus the warm-ups (`path_launches`), and
+phase 12 gates those of a replayed c4 render against its device rows.
 
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
 2. build: compiles every kernel (csrc/voice_mix.cu, affine_scan.cu,
@@ -26,8 +33,9 @@ the final line:
    distance is printed, not gated);
 5. c5 end to end (64 streamed SampleMulti tracks, 48 kHz / 1024, 40 s,
    32-bit, a 96 kHz hit resampled on import): refresh + render on cuda,
-   the kernel launch counts of that run, and the WAV against the port's
-   CPU render of the same project (|diff| <= max(1, 1e-5 * 2^(bd-1)));
+   the kernel launch counts of that run, its replays and captures, and
+   the WAV against the port's CPU render of the same project (|diff| <=
+   max(1, 1e-5 * 2^(bd-1)));
 6. c1 end to end (two SampleLoops -> Normalize, 48 kHz -> 44.1 kHz
    16-bit), with the same comparison;
 7. c2 end to end (SampleLerp kick, an Adsr envelope ducking a looping
@@ -60,10 +68,13 @@ the final line:
    at 67 TFLOP/s) and the share of the bound it reaches: the scans at
    every shape c3 and c4 run them at, the max-decay also at [1025, 4],
    the voice mix in both regimes;
-12. torch.profiler traces of two c4 renders: the first as it runs
-   (device time in all and in each kernel, device kernel launches, device
-   busy share of the wall), the second with each effect fenced by
-   synchronizes (the effects' device time);
+12. torch.profiler traces of three c4 renders: replayed from graphs and
+   eager (`render_window(..., eager=True)`), each as it runs (device time
+   in all and in each kernel, device rows, device busy share of the wall;
+   in the replayed one each kernel's calls on the card must equal its
+   programs' captured launches times their replays), then
+   eager with each effect fenced by synchronizes (the effects' device
+   time);
 13. the exact biquad lane's kernel (csrc/biquad_seq.cu) against its plain
    version with the c4 eq3's stage coefficients (lowpass and highpass at
    the 180 Hz and 4 kHz crossovers, 48 kHz) on a seeded input: bit-exact
@@ -72,8 +83,9 @@ the final line:
    |y| of a float64 lfilter; device ms per call (between CUDA events:
    torch.profiler loses some of this kernel's rows) beside its bound, the
    latency of its serial chain (12 cycles a frame at 1.98 GHz);
-14. c4 with TERMDAW_EXACT_BIQUAD=1 on the card: the render launches the
-   kernel 20 times and the complex scan never; the median of 5 walls;
+14. c4 with TERMDAW_EXACT_BIQUAD=1 on the card: the render's replays
+   launch the kernel 20 times (its programs' captured launches times
+   their replays) and the complex scan never; the median of 5 walls;
    the distance in 16-bit counts to phase 10's default-lane render
    (gated at 2e-3 of full scale); the project cut to 1 s rendered on the
    card and on the CPU within one count;
@@ -83,9 +95,11 @@ the final line:
    the Player is paused after 30 s of wall, since a 1-block window
    slower than a block keeps tick() catching up for good. Gated: the
    events were appended, the audio is finite and non-zero after the
-   first event. Printed: blocks rendered, the window sizes tick()
-   picked, underruns, the queued lead, the session's wall and whether
-   the deadline paused it, render_window walls at nb = 1, 4 and 32;
+   first event, every window a replay. Printed: blocks rendered, the
+   window sizes tick() picked, underruns, the queued lead, the session's
+   wall and whether the deadline paused it, render_window walls at nb =
+   1, 4 and 32, the programs cached and the memory their captures added
+   to the graph's one pool;
 16. chains: c5 and c3 rendered twice each with chains (the default) and
    with TERMDAW_PREBAKE=0, the WAVs bit-identical; windows served, host
    bake ms a render and the median walls each way; then c5 under
@@ -114,6 +128,20 @@ the final line:
    Printed: the median of 3 sharded walls (rank 0's render_device) beside
    the single-rank medians served from a chain and live
    (TERMDAW_PREBAKE=0), and the host seconds rank 0 spent in collectives.
+   Sharded windows run the eager program, as in the reference;
+19. the program cache: c5, c1, c2, c3 and c4 each loaded and rendered
+   four times, eager (`eager=True`), from graphs, from graphs,
+   eager, in one process: the WAVs bit-identical, every graph window a
+   replay. Printed for each run: the median of 5 render_device walls,
+   the host's enqueue rows a window (cudaLaunchKernel, cudaGraphLaunch,
+   copies and fills under torch.profiler) and the device rows a window;
+   for graphs, each program's window size, warm-up and capture ms (its
+   first window), the MB its capture added to the graph's pool and its
+   captured kernel launches; for c4, the render_window walls at nb = 1, 4
+   and 32 and the pool with those programs in. Gated: c4's replayed windows
+   enqueue at most 8 operations each. Then phase 15's stream session
+   again on the eager program, both sessions' underruns, leads and
+   window sizes side by side.
 
 Then the card line, the kernels line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -510,41 +538,72 @@ def profiled_render(st, fenced: bool):
 
 
 def profile_render(st) -> dict:
-    """Two profiled c4 renders. The first, as the render runs: device time
-    in all and in each of the port's kernels, device launches, and the
-    device busy share of the profiled wall. The second with each effect
-    fenced (see profiled_render): the effects' device time."""
+    """Three profiled c4 renders. The first replays the captured window
+    programs, the second runs the eager program, each as the render runs:
+    device time in all and in each of the port's kernels, device rows, and
+    the device busy share of the profiled wall. In the replayed render
+    each kernel's calls on the card (its device rows, a tiled scan's
+    tile_scan rows: a call may add a tile_reduce) must equal its programs'
+    captured launches times their replays (path_launches); a trace that
+    lost rows is taken again. The third, eager too, with each effect
+    fenced (see profiled_render; a replay cannot synchronize inside an
+    effect): the effects' device time."""
     from termdaw_tpu_torch.engine.state import render_chunk_blocks
+
+    global short_traces
 
     def ms(rows) -> float:
         return sum(e.device_time_total for e in rows) / 1e3
 
-    wall, dev, _ = profiled_render(st, fenced=False)
-    device_ms = ms(dev)
-    check(device_ms > 0, "the profiler saw no device time")
-    mine = {}
-    for k, name in (("voice_mix", "voice_mix_kernel"),
-                    ("affine_scan", "AffineScanOp"),
-                    ("max_decay_scan", "MaxDecayScanOp"),
-                    ("complex_scan", "ComplexScanOp")):
-        ks = [e for e in dev if name in e.name]
-        mine[k] = {"ms": ms(ks), "device_kernels": len(ks)}
-    _, fdev, ranges = profiled_render(st, fenced=True)
+    def summary(wall, dev) -> dict:
+        device_ms = ms(dev)
+        check(device_ms > 0, "the profiler saw no device time")
+        mine = {}
+        for k, name in (("voice_mix", "voice_mix_kernel"),
+                        ("affine_scan", "AffineScanOp"),
+                        ("max_decay_scan", "MaxDecayScanOp"),
+                        ("complex_scan", "ComplexScanOp")):
+            ks = [e for e in dev if name in e.name]
+            calls = [e for e in ks if k == "voice_mix"
+                     or "tile_scan" in e.name]
+            mine[k] = {"ms": ms(ks), "device_kernels": len(ks),
+                       "device_calls": len(calls)}
+        return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+                "device_busy_share": device_ms / (wall * 1e3),
+                "device_launches": len(dev), "kernels": mine}
+
+    cg = st.compiled
+    for _ in range(PROFILE_TRIES):
+        since = {id(p): p.replays for p in cg.programs()}
+        graphs = summary(*profiled_render(st, fenced=False)[:2])
+        want = path_launches(cg, since)
+        got = {k: v["device_calls"] for k, v in graphs["kernels"].items()}
+        if got == {k: want.get(k, 0) for k in got}:
+            break
+        short_traces += 1
+    graphs["replayed_launches"] = want
+    for k, v in graphs["kernels"].items():
+        check(want.get(k, 0) > 0 and v["device_calls"] == want[k],
+              f"the replayed c4 render ran {v['device_calls']} {k} calls "
+              f"on the card, its programs {want.get(k, 0)}")
+    eager_windows(cg, True)
+    try:
+        eager = summary(*profiled_render(st, fenced=False)[:2])
+        _, fdev, ranges = profiled_render(st, fenced=True)
+    finally:
+        eager_windows(cg, False)
     fx_ms = {name: ms(e for e in fdev if any(
         lo <= e.time_range.start < hi for lo, hi in spans))
         for name, spans in ranges.items()}
     eq3_complex = ms(e for e in fdev if "ComplexScanOp" in e.name)
-    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
-            "device_busy_share": device_ms / (wall * 1e3),
+    return {"graphs": graphs, "eager": eager,
             "effects_device_ms": fx_ms,
             "effects_share_of_device": sum(fx_ms.values()) / ms(fdev),
             # every complex scan of c4 runs in the eq3: a check of the
             # attribution
             "eq3_holds_complex_scans": fx_ms.get("fx:eq3", 0.0) >=
             eq3_complex,
-            "device_launches": len(dev),
-            "windows": -(-st.cs // render_chunk_blocks(st.cs)),
-            "kernels": mine}
+            "windows": -(-st.cs // render_chunk_blocks(st.cs))}
 
 
 def render_wav(fixtures, d, device, packets, wav):
@@ -583,6 +642,113 @@ def wall_render(st, reps: int) -> list[float]:
         if i:
             out.append(dt)
     return out
+
+
+def check_replays(st, what: str) -> dict:
+    """Every window the graph rendered (served or live) replayed a
+    captured program; its captures are its cache entries."""
+    cg = st.compiled
+    windows = cg.served_windows + cg.live_bakes
+    check(cg.replays == windows > 0,
+          f"{what}: {cg.replays} replays for {windows} windows")
+    check(cg.captures == len(cg.programs()) > 0 and all(
+        p.graph is not None for p in cg.programs()),
+          f"{what}: {cg.captures} captures, {len(cg.programs())} programs")
+    return {"windows": windows, "replays": cg.replays,
+            "captures": cg.captures}
+
+
+def path_launches(cg, since: dict | None = None,
+                  warmups: bool = True) -> dict[str, int]:
+    """The launches of each kernel the graph's windows ran on the card:
+    each program's captured launches times its replays (those after
+    `since`, a {program id: replays} snapshot), plus one eager warm-up's
+    for each program captured in that time. The wrappers count only what
+    they launch (the warm-up and the capture), never a replay."""
+    since = since or {}
+    out: dict[str, int] = {}
+    for p in cg.programs():
+        runs = p.replays - since.get(id(p), 0)
+        if warmups and id(p) not in since:
+            runs += 1
+        for k, n in p.kernels.items():
+            out[k] = out.get(k, 0) + n * runs
+    return out
+
+
+def check_wrapper_counts(cg, counts: dict[str, int], what: str) -> None:
+    """The wrapper counts of a fresh graph's render are its programs'
+    warm-ups and captures: twice the launches each captured."""
+    captured: dict[str, int] = {}
+    for p in cg.programs():
+        for k, n in p.kernels.items():
+            captured[k] = captured.get(k, 0) + n
+    for k, n in counts.items():
+        check(n == 2 * captured.get(k, 0),
+              f"{what}: the {k} wrapper counted {n} launches, its programs "
+              f"captured {captured.get(k, 0)}")
+
+
+def eager_windows(cg, on: bool) -> None:
+    """Run the graph's windows through the eager program (on) or its
+    cached programs (off): the A/B's eager side, and profiles that
+    synchronize inside the program."""
+    import functools
+
+    if on:
+        cg.render_window = functools.partial(type(cg).render_window, cg,
+                                             eager=True)
+    else:
+        cg.__dict__.pop("render_window", None)
+
+
+# the runtime calls that enqueue work on the card, as torch.profiler's
+# CPU-side rows name them
+ENQUEUES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
+            "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def host_launches(st) -> dict:
+    """One render's windows (render_device's loop, without its resample
+    and quantize) under torch.profiler: the host's enqueue rows (kernel
+    and graph launches, copies, fills) and the device rows, a window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from termdaw_tpu_torch.engine.state import render_chunk_blocks
+
+    global empty_traces
+    cg = st.compiled
+    step = render_chunk_blocks(st.cs)
+    wins = [min(step, st.cs - i) for i in range(0, st.cs, step)]
+    cuda_t = torch.autograd.DeviceType.CUDA
+    captures = cg.captures
+    for _ in range(PROFILE_TRIES):
+        cg.set_time(0)
+        st.fb.set_time(0)
+        cg.seed_caps(st.fb, st.cs, step)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for nb in wins:
+                cg.render_window(st.fb, nb)
+                st.fb.advance_blocks(nb)
+            torch.cuda.synchronize()
+        events = prof.events()
+        calls: dict[str, int] = {}
+        for e in events:
+            if e.name in ENQUEUES and e.device_type != cuda_t:
+                calls[e.name] = calls.get(e.name, 0) + 1
+        dev = sum(1 for e in events if e.device_type == cuda_t)
+        if calls and dev:
+            break
+        empty_traces += 1
+    cg.set_time(0)
+    st.fb.set_time(0)
+    n = len(wins)
+    return {"windows_profiled": n,
+            "host_enqueues_a_window": sum(calls.values()) / n,
+            "host_enqueues_by_call": calls, "device_rows_a_window": dev / n,
+            "captures_while_profiled": cg.captures - captures}
 
 
 def event_ms(fn, reps: int) -> float:
@@ -722,13 +888,14 @@ def trace_breakdown(path: Path, top: int = 8) -> dict:
                     self_us.items(), key=lambda kv: -kv[1])[:top]]}
 
 
-def stream_session(fixtures, d: Path, device) -> dict:
+def stream_session(fixtures, d: Path, device, eager: bool = False) -> dict:
     """Phase 15: run_stream_workflow on `device` over the live c4 project
     in d, fed through an os.pipe by a writer thread (a drum hit every
     100 ms and a note every 500 ms, each 0.3 s ahead of the wall clock,
     for STREAM_SECONDS), into a DrainSink; the Player is paused once the
-    session has run STREAM_DEADLINE_S. Returns the sink, the state, the
-    window sizes the Player rendered, the writer's packet count, the
+    session has run STREAM_DEADLINE_S. `eager` runs the eager program in
+    place of the captured ones (phase 19). Returns the sink, the state,
+    the window sizes the Player rendered, the writer's packet count, the
     session's wall and whether the deadline paused it."""
     import os
     import threading
@@ -738,6 +905,7 @@ def stream_session(fixtures, d: Path, device) -> dict:
     from termdaw_tpu_torch.workflows.stream import run_stream_workflow
 
     st = fixtures.load_state(d, device)
+    eager_windows(st.compiled, eager)
     version = st.fb.version
     sink = DrainSink(SR)
     sizes: list[int] = []
@@ -813,6 +981,7 @@ def main() -> int:
 
     from termdaw_tpu_torch import kernels
     from termdaw_tpu_torch.engine.player import Player
+    from termdaw_tpu_torch.graph import compile as gcompile
     from termdaw_tpu_torch.ops import filters, scan, voices
     from termdaw_tpu_torch.utils import fixtures
 
@@ -911,11 +1080,15 @@ def main() -> int:
         st5, gpu5, rate5 = render_wav(fixtures, d5, cuda, packets,
                                       d5 / "mix.wav")
         c5_wall = time.perf_counter() - t0
-        launches = voices.launches
+        c5_replays = check_replays(st5, "c5")
+        check_wrapper_counts(st5.compiled, {"voice_mix": voices.launches},
+                             "c5")
+        launches = path_launches(st5.compiled).get("voice_mix", 0)
         check(launches > 0, "the c5 render launched no voice-mix kernel")
         _, cpu5, _ = render_wav(fixtures, d5, cpu, packets, d5 / "mix.wav")
         emit("c5_end_to_end", tracks=64, seconds=SECONDS, sr=SR, bd=32,
              voice_mix_launches=launches,
+             voice_mix_wrapper_count=voices.launches, **c5_replays,
              fused_slots=[c["pf"] for k, c in st5.compiled.bake_caps.items()
                           if k.startswith("fused")],
              first_render_wall_s=c5_wall,
@@ -928,9 +1101,10 @@ def main() -> int:
                                   bd=16)
         st1, gpu1, rate1 = render_wav(fixtures, d1, cuda, b"",
                                       d1 / "outp.wav")
+        c1_replays = check_replays(st1, "c1")
         _, cpu1, _ = render_wav(fixtures, d1, cpu, b"", d1 / "outp.wav")
         emit("c1_end_to_end", seconds=SECONDS, sr=SR, render_sr=44100,
-             bd=16,
+             bd=16, **c1_replays,
              **compare("c1", gpu1, cpu1, 16, rate1, 44100,
                        2 * -(-st1.cs * BL * 147 // 160)))
 
@@ -945,16 +1119,18 @@ def main() -> int:
             st, gpu, rate = render_wav(fixtures, d, cuda, b"",
                                        d / "outp.wav")
             wall = time.perf_counter() - t0
-            counts = {"voice_mix": voices.launches,
-                      "affine_scan": scan.launches}
+            replays = check_replays(st, cfg)
+            check_wrapper_counts(st.compiled, {
+                "voice_mix": voices.launches, "affine_scan": scan.launches},
+                cfg)
+            counts = path_launches(st.compiled)
             if cfg == "c3":
-                scan_launches = scan.launches
-                check(scan_launches > 0,
+                check(counts.get("affine_scan", 0) > 0,
                       "the c3 render launched no affine-scan kernel")
             _, cpu_ints, _ = render_wav(fixtures, d, cpu, b"",
                                         d / "outp.wav")
             emit(f"{cfg}_end_to_end", seconds=SECONDS, sr=SR, bd=16,
-                 launches=counts, first_render_wall_s=wall,
+                 launches=counts, **replays, first_render_wall_s=wall,
                  **compare(cfg, gpu, cpu_ints, 16, rate, SR,
                            2 * st.cs * BL))
             st23[cfg] = st
@@ -1056,15 +1232,20 @@ def main() -> int:
         st4, gpu4, rate4 = render_wav(fixtures, d4, cuda, b"",
                                       d4 / "outp.wav")
         c4_wall = time.perf_counter() - t0
-        c4_counts = {"voice_mix": voices.launches,
-                     "affine_scan": scan.launches,
-                     "max_decay_scan": scan.max_decay_launches,
-                     "complex_scan": scan.complex_launches}
-        for k, n in c4_counts.items():
-            check(n > 0, f"the c4 render launched no {k} kernel")
+        c4_replays = check_replays(st4, "c4")
+        check_wrapper_counts(st4.compiled, {
+            "voice_mix": voices.launches, "affine_scan": scan.launches,
+            "max_decay_scan": scan.max_decay_launches,
+            "complex_scan": scan.complex_launches}, "c4")
+        c4_counts = path_launches(st4.compiled)
+        for k in ("voice_mix", "affine_scan", "max_decay_scan",
+                  "complex_scan"):
+            check(c4_counts.get(k, 0) > 0,
+                  f"the c4 render launched no {k} kernel")
         _, cpu4, _ = render_wav(fixtures, d4, cpu, b"", d4 / "outp.wav")
         emit("c4_end_to_end", seconds=SECONDS, sr=SR, render_sr=44100,
-             bd=16, launches=c4_counts, first_render_wall_s=c4_wall,
+             bd=16, launches=c4_counts, **c4_replays,
+             first_render_wall_s=c4_wall,
              **compare("c4", gpu4, cpu4, 16, rate4, 44100,
                        2 * -(-st4.cs * BL * 147 // 160)))
 
@@ -1204,13 +1385,19 @@ def main() -> int:
             st4x, gpu4x, rate4x = render_wav(fixtures, d4, cuda, b"",
                                              d4 / "outp.wav")
             c4x_wall = time.perf_counter() - t0
-            bq_launches = filters.biquad_seq_launches
-            c4x_counts = {"biquad_seq": bq_launches,
+            c4x_counts = {"biquad_seq": filters.biquad_seq_launches,
                           "complex_scan": scan.complex_launches}
             check(st4x.compiled.exact_biquad, "the flag was not read")
-            check(bq_launches == 20, f"the exact-lane c4 render launched "
-                  f"biquad_seq {bq_launches} times, not 20")
-            check(scan.complex_launches == 0, "the exact-lane c4 render "
+            c4x_replays = check_replays(st4x, "c4 on the exact lane")
+            check_wrapper_counts(st4x.compiled, c4x_counts,
+                                 "c4 on the exact lane")
+            replayed = path_launches(st4x.compiled, warmups=False)
+            bq_launches = path_launches(st4x.compiled).get("biquad_seq", 0)
+            check(replayed.get("biquad_seq", 0) == 20,
+                  f"the exact-lane c4 render replayed biquad_seq "
+                  f"{replayed.get('biquad_seq', 0)} times, not 20")
+            check(scan.complex_launches == 0 and
+                  "complex_scan" not in replayed, "the exact-lane c4 render "
                   "launched the complex scan")
             check(rate4x == 44100 and gpu4x.shape == gpu4.shape,
                   "exact-lane c4 WAV format")
@@ -1232,7 +1419,9 @@ def main() -> int:
                   "more than one count apart")
         finally:
             del os.environ["TERMDAW_EXACT_BIQUAD"]
-        emit("c4_exact_lane", card=card, launches=c4x_counts,
+        emit("c4_exact_lane", card=card, wrapper_counts=c4x_counts,
+             replayed_launches=replayed, launches=bq_launches,
+             **c4x_replays,
              first_render_wall_s=c4x_wall, render_device_s=c4x_s,
              median_s=statistics.median(c4x_s),
              default_lane_median_s=statistics.median(c4_s),
@@ -1245,11 +1434,14 @@ def main() -> int:
                                   bd=16, live=True)
         reset_counts()
         sess = stream_session(fixtures, d4l, cuda)
-        sess_launches = {"voice_mix": voices.launches,
+        sst, sink = sess["state"], sess["sink"]
+        sess_wrappers = {"voice_mix": voices.launches,
                          "affine_scan": scan.launches,
                          "max_decay_scan": scan.max_decay_launches,
                          "complex_scan": scan.complex_launches}
-        sst, sink = sess["state"], sess["sink"]
+        # the programs still cached (a longer time table drops the others)
+        sess_launches = path_launches(sst.compiled)
+        sess_pool_mb = sst.compiled.pool_bytes / 1e6
         audio = np.concatenate(sink.chunks)
         first = 2 * int(sess["first_event_s"] * SR)
         check(sess["packets"] > 0 and
@@ -1258,6 +1450,10 @@ def main() -> int:
         check(bool(np.isfinite(audio).all()), "stream audio not finite")
         check(audio.size > first and float(np.abs(audio[first:]).max()) > 0,
               "stream audio silent after the first event")
+        sess_replays = check_replays(sst, "the stream session")
+        check(sess_replays["windows"] == len(sess["sizes"]),
+              f"the stream session rendered {len(sess['sizes'])} windows, "
+              f"the graph {sess_replays['windows']}")
         hist = {str(n): sess["sizes"].count(n)
                 for n in sorted(set(sess["sizes"]))}
         nb_walls = {}
@@ -1281,7 +1477,11 @@ def main() -> int:
              median_lead_ms=statistics.median(sink.leads_ms),
              block_ms=BL / SR * 1e3,
              render_window_ms_median={"nb": nb_walls},
-             launches=sess_launches)
+             launches=sess_launches, wrapper_counts=sess_wrappers,
+             programs=len(sst.compiled.programs()),
+             pool_mb=sess_pool_mb,
+             memory_reserved_mb=torch.cuda.memory_reserved(cuda) / 1e6,
+             **sess_replays)
 
         # 16. chains against live bakes, then TERMDAW_VOICE_CAP
         def bake_timed(st):
@@ -1318,6 +1518,7 @@ def main() -> int:
                     cg = st.compiled
                     check(cg._prebake_used <= cg._prebake_budget,
                           f"{cfg}: chain bytes over the budget")
+                    check_replays(st, f"{cfg} chains, {mode}")
                     acc = bake_timed(st)
                     walls = wall_render(st, 5)
                 finally:
@@ -1423,12 +1624,104 @@ def main() -> int:
                                      summary["backend"]),
                  single_rank=single, **summary)
 
+        # 19. the window-program cache: the eager program against the
+        # captured graphs, in the order eager, graphs, graphs, eager
+        from termdaw_tpu_torch.engine.state import render_chunk_blocks
+
+        ab = {}
+        for cfg, d, pk, wav in (
+                ("c5", d5, packets, d5 / "mix.wav"),
+                ("c1", d1, b"", d1 / "outp.wav"),
+                ("c2", tmp / "c2", b"", tmp / "c2" / "outp.wav"),
+                ("c3", tmp / "c3", b"", tmp / "c3" / "outp.wav"),
+                ("c4", d4, b"", d4 / "outp.wav")):
+            runs, wavs = [], []
+            for mode in ("eager", "graphs", "graphs", "eager"):
+                st = fixtures.load_state(d, cuda, pk)
+                cg = st.compiled
+                eager_windows(cg, mode == "eager")
+                st.render()
+                torch.cuda.synchronize()
+                wavs.append(fixtures.read_wav_ints(wav)[0])
+                walls = wall_render(st, 5)
+                run = {"mode": mode, "median_s": statistics.median(walls),
+                       "render_device_s": walls, **host_launches(st)}
+                if mode == "graphs":
+                    run.update(check_replays(st, f"{cfg} from graphs"))
+                    check(run["captures_while_profiled"] == 0,
+                          f"{cfg}: a warm render captured a program")
+                    run["programs"] = [{
+                        "nb": k[1], "is_scan": k[2],
+                        "warmup_ms": p.warmup_ms,
+                        "capture_ms": p.capture_ms,
+                        "pool_mb": p.pool_bytes / 1e6,
+                        "kernels_captured": p.kernels, "replays": p.replays,
+                    } for k, p in gcompile._PROGRAM_CACHE.items()
+                        if p.cg is cg]
+                    run["pool_mb_all"] = cg.pool_bytes / 1e6
+                else:
+                    check(cg.replays == cg.captures == 0,
+                          f"{cfg}: the eager run used the cache")
+                if cfg == "c4":
+                    nb_ms = {}
+                    for nb in (1, 4, 32):
+                        ws = []
+                        for _ in range(7):
+                            st.fb.set_time(cg.get_time())
+                            t0 = time.perf_counter()
+                            cg.render_window(st.fb, nb)
+                            torch.cuda.synchronize()
+                            ws.append((time.perf_counter() - t0) * 1e3)
+                            st.fb.advance_blocks(nb)
+                        nb_ms[str(nb)] = statistics.median(ws[2:])
+                    run["render_window_ms_median"] = nb_ms
+                    if mode == "graphs":
+                        # three more programs, in the same pool
+                        run["pool_mb_all_with_nb_programs"] = \
+                            cg.pool_bytes / 1e6
+                        run["programs_with_nb_programs"] = len(
+                            cg.programs())
+                cg.release_chains()
+                runs.append(run)
+            for i, w in enumerate(wavs[1:], 1):
+                check(np.array_equal(w, wavs[0]),
+                      f"{cfg}: the {runs[i]['mode']} WAV (run {i + 1}) is "
+                      f"not bit-identical to the first eager run's")
+            ab[cfg] = {"bit_identical": True, "windows_a_render":
+                       -(-st.cs // render_chunk_blocks(st.cs)),
+                       "runs": runs}
+        worst = max(r["host_enqueues_a_window"] for r in ab["c4"]["runs"]
+                    if r["mode"] == "graphs")
+        check(worst <= 8, f"c4: {worst} host enqueues a replayed window")
+        esess = stream_session(fixtures, d4l, cuda, eager=True)
+        check(esess["state"].compiled.replays == 0,
+              "the eager stream session used the cache")
+        eaudio = np.concatenate(esess["sink"].chunks)
+        check(bool(np.isfinite(eaudio).all()),
+              "eager stream audio not finite")
+        emit("program_cache", card=card, **ab,
+             c4_host_enqueues_a_replayed_window_max=worst,
+             stream_session={
+                 mode: {"blocks_rendered": sum(s["sizes"]),
+                        "window_sizes": {str(n): s["sizes"].count(n)
+                                         for n in sorted(set(s["sizes"]))},
+                        "underruns": s["sink"].underruns,
+                        "min_lead_ms": min(s["sink"].leads_ms),
+                        "median_lead_ms": statistics.median(
+                            s["sink"].leads_ms),
+                        "session_wall_s": s["wall_s"],
+                        "paused_at_deadline": s["paused_at_deadline"]}
+                 for mode, s in (("graphs", sess), ("eager", esess))})
+
     print(card, flush=True)
+    # launches: what each kernel's main-path render ran on the card (its
+    # programs' replays and warm-ups, path_launches): c5's for the voice
+    # mix, c4's for the scans, the flag-on c4's for the exact lane
     rows = (
         ("voice_mix_stereo", "voice_mix", "termdaw_tpu/ops/pallas_voices.py:50",
          launches, max_err),
         ("affine_scan", "affine_scan", "termdaw_tpu/ops/filters.py:72",
-         scan_launches, scan_err),
+         c4_counts["affine_scan"], scan_err),
         ("max_decay_scan", "max_decay_scan", "termdaw_tpu/ops/fx.py:63",
          c4_counts["max_decay_scan"], mres["kernel_vs_plain"]),
         ("complex_affine_scan", "complex_scan",

@@ -24,20 +24,48 @@ instead of as a jitted XLA program:
   build. The port always fuses, so the reference's per-chain `fused` key
   is dropped. Pass 2 keeps a window only if its bytes fit the budget
   (the reference keeps the window that crosses it);
-* `_program` has an arm for every vertex kind. The PLUGINFX arm (the
-  native effects, ops/fx.py) takes its traced params from `_pack_fx`
-  (one f32 upload per PluginHost change) and its wet gate from the host:
-  with wet < 1e-4 the input passes and the `.fx` state is left as it was,
-  without running the effect (the reference's `jnp.where` leaf by leaf
-  gives the same values);
+* `_program` has an arm for every vertex kind and reads device inputs
+  only (reference `packed`, compile.py:1589-1598): the bake buffers, the
+  window's first frame `t0` (a Python int or a 0-d int64 tensor), the
+  time table, the traced effect params and the numeric state, which it
+  writes back in place at its end (`num_state`'s tensors are allocated
+  once; every reset, seek and hand-over writes into them). The PLUGINFX
+  arm (the native effects, ops/fx.py) takes its traced params as 0-d
+  views of one persistent f32 vector that `_pack_fx` refreshes in place
+  at each PluginHost change, its device constants (the eq3's biquad
+  coefficients) from build, and its wet gate from the host: with wet <
+  1e-4 the input passes and the `.fx` state is left as it was, without
+  running the effect (the reference's `jnp.where` leaf by leaf gives the
+  same values);
+* the window-program cache (reference compile.py:124-175, 1584-1604): a
+  bounded LRU `_PROGRAM_CACHE` of `_WindowProgram`s, capped by
+  TERMDAW_PROGRAM_CACHE (max(8, int(env or 128)), read at import), keyed
+  by (graph serial, nb, is_scan, bake layout, time-table length). On
+  CUDA an entry is one captured `torch.cuda.CUDAGraph` of `_program` with
+  its static inputs (the bake buffers at the layout's sizes and `t0`) and
+  its static output: every single-device window, live or served, copies
+  its bake into those buffers, writes `t0`, replays and clones the audio
+  out. A graph's programs capture into one memory pool, since their
+  replays are serialized on one stream. A capture that fails raises,
+  naming the vertex it was in; nothing falls back to eager. On the CPU an
+  entry runs the eager program over the same buffers. Deviation: the
+  reference keys by a spec that compares equal across refreshes; here the
+  graph's serial number stands for it, so entries never outlive their
+  CompiledGraph (`release_chains`, called at refresh, drops them; a
+  capture costs milliseconds where an XLA compile costs seconds), and a
+  longer time table drops the entries keyed to the shorter one.
+  `render_window(..., eager=True)` runs the eager program directly, for
+  measurement; sharded windows always do, as in the reference;
 * TERMDAW_EXACT_BIQUAD=1 is read once at build, as the reference does,
-  and every window renders under `filters.exact_biquad_scope` of that
-  value, so the biquads run the exact sequential lane
-  (`filters.biquad_apply_sequential`) or the parallel one;
+  and every window renders (and captures) under
+  `filters.exact_biquad_scope` of that value, so the biquads run the
+  exact sequential lane (`filters.biquad_apply_sequential`) or the
+  parallel one;
 * the frame -> seconds table (`time_table`, a correctly rounded f32
-  division on the host) is uploaded once per size on the graph's device
-  and sliced per window, for the synths' `time2d` and every envelope's
-  in-block offsets `ib`;
+  division on the host) is uploaded once per size on the graph's device,
+  at least as long as the render `seed_caps` was given (the reference's
+  `_ttab_min_frames`), and gathered at the window's frames, for the
+  synths' `time2d` and every envelope's in-block offsets `ib`;
 * `render_window_sharded` (compile.py:1145-1247) renders a window with
   its block range split across the ranks of a mesh (parallel/mesh.py):
   every rank bakes the whole window on its host, live, slices the
@@ -61,7 +89,9 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import os
+import time
 from dataclasses import dataclass, replace
 from typing import Any
 
@@ -72,12 +102,191 @@ from ..banks.flowwbank import FlowwBank
 
 from . import bake as B
 from . import graph as G
-from ..ops import envelope, filters, fx, mix, sampler, synthv, voices
+from ..ops import envelope, filters, fx, mix, sampler, scan, synthv, voices
 from ..ops.filters import BandPassState
 
 # kinds whose window kernels read absolute frames / the time table
 _FRAME_KINDS = (G.SAMPLELERP, G.DEBUGSINE, G.SYNTH, G.SAMPSYN, G.ADSR)
 _TIME_KINDS = (G.DEBUGSINE, G.SYNTH, G.SAMPSYN, G.ADSR)
+
+# window programs: a bounded LRU, since each entry pins its CompiledGraph
+# (samples, wavetables, state) and, on CUDA, its graph's memory pool
+# (reference compile.py:124-175)
+_PROGRAM_CACHE: dict = {}
+_PROGRAM_CACHE_CAP = max(
+    8, int(os.environ.get("TERMDAW_PROGRAM_CACHE", "128") or "128")
+)
+_GRAPH_SERIALS = itertools.count()
+
+
+def _cache_get(key):
+    fn = _PROGRAM_CACHE.get(key)
+    if fn is not None:
+        _PROGRAM_CACHE[key] = _PROGRAM_CACHE.pop(key)  # LRU: move to end
+    return fn
+
+
+def _cache_put(key, fn):
+    _PROGRAM_CACHE[key] = fn
+    while len(_PROGRAM_CACHE) > _PROGRAM_CACHE_CAP:
+        _PROGRAM_CACHE.pop(next(iter(_PROGRAM_CACHE)))
+
+
+def _kernel_counts() -> dict[str, int]:
+    """Each hand-written kernel's wrapper launch count."""
+    return {"voice_mix": voices.launches, "affine_scan": scan.launches,
+            "max_decay_scan": scan.max_decay_launches,
+            "complex_scan": scan.complex_launches,
+            "biquad_seq": filters.biquad_seq_launches}
+
+
+_CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
+    """One side stream a card for captures (the legacy default stream
+    cannot capture)."""
+    s = _CAPTURE_STREAMS.get(dev.index)
+    if s is None:
+        s = _CAPTURE_STREAMS[dev.index] = torch.cuda.Stream(dev)
+    return s
+
+
+class _WindowProgram:
+    """One cached window program: static inputs (the packed bake buffers
+    at the layout's sizes and `t0`) and, on CUDA, the graph of
+    CompiledGraph._program over them, captured at the first call (from
+    the first window's inputs) into the CompiledGraph's memory pool, with
+    its static output; on the CPU the
+    eager program over the same buffers. Calling it runs the window with
+    what was written into the inputs; a replay's audio is cloned out of
+    the static output, which the next replay overwrites."""
+
+    def __init__(self, cg: "CompiledGraph", nb: int, is_scan: bool,
+                 layout: tuple) -> None:
+        dev = cg.device
+        n_i, n_f = _layout_sizes(layout)
+        self.cg = cg
+        self.ints = torch.zeros(n_i, dtype=torch.int32, device=dev)
+        self.floats = torch.zeros(n_f, dtype=torch.float32, device=dev)
+        self.t0 = torch.zeros((), dtype=torch.int64, device=dev)
+        self.replays = 0
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.out: torch.Tensor | None = None
+        self.warmup_ms = self.capture_ms = 0.0
+        self.pool_bytes = 0  # what its capture added to the graph's pool
+        self.kernels: dict[str, int] = {}  # kernel launches captured
+
+        def run(write_state: bool = True) -> torch.Tensor:
+            bakes = _unpack_bakes(self.ints, self.floats, layout)
+            with filters.exact_biquad_scope(cg.exact_biquad):
+                return cg._program(bakes, self.t0, nb, is_scan,
+                                   write_state=write_state)
+
+        self._run = run
+
+    def _capture(self, dev: torch.device) -> None:
+        """A warm-up of the program on the inputs written for the first
+        window that leaves the state as it was (lazy initialisation
+        happens outside the capture), then the capture. A failure raises
+        with the vertex the program was at."""
+        from .. import kernels
+
+        kernels.load_all(dev)  # nothing may be built or loaded in capture
+        stream, cur = _capture_stream(dev), torch.cuda.current_stream(dev)
+        stream.wait_stream(cur)
+        cg = self.cg
+        if not any(p.graph is not None for p in cg.programs()):
+            # a pool outlives its last graph only until its blocks are
+            # freed, and cannot take another capture: a new pool
+            cg._graph_pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.stream(stream):
+            t = time.perf_counter()
+            self._run(write_state=False)
+            stream.synchronize()
+            self.warmup_ms = (time.perf_counter() - t) * 1e3
+            reserved = torch.cuda.memory_reserved(dev)
+            counts = _kernel_counts()
+            graph = torch.cuda.CUDAGraph()
+            t = time.perf_counter()
+            graph.capture_begin(pool=cg._graph_pool)
+            try:
+                out = self._run()
+            except BaseException as e:
+                try:
+                    graph.capture_end()
+                except Exception:
+                    pass  # the capture is void; its first error is raised
+                if not isinstance(e, Exception):
+                    raise
+                vi, kind = cg._vertex_at
+                where = (f"vertex {cg.graph.names[vi]!r} ({kind})"
+                         if vi is not None else kind)
+                raise RuntimeError(
+                    f"capturing the window program failed in {where}: "
+                    f"{e}") from e
+            graph.capture_end()
+            self.capture_ms = (time.perf_counter() - t) * 1e3
+        cur.wait_stream(stream)
+        after = _kernel_counts()
+        self.kernels = {k: after[k] - n for k, n in counts.items()
+                        if after[k] > n}
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        cg.pool_bytes += self.pool_bytes
+        self.graph, self.out = graph, out
+
+    def __call__(self) -> torch.Tensor:
+        dev = self.ints.device
+        if dev.type != "cuda":
+            self.replays += 1
+            return self._run()
+        if self.graph is None:
+            self._capture(dev)
+        self.replays += 1
+        self.graph.replay()
+        return self.out.clone()
+
+
+def _layout_sizes(layout: tuple) -> tuple[int, int]:
+    """The int32 and float32 buffer lengths `_pack_bakes` gives a layout
+    (1 for an empty buffer)."""
+    n = {"i": 1, "f": 1}
+    for _vkey, _field, kind, off, shape in layout:
+        n[kind] = max(n[kind], off + (int(np.prod(shape)) if shape else 1))
+    return n["i"], n["f"]
+
+
+def _state_pairs(dst, src, out: list) -> None:
+    """(persistent leaf, new value) pairs of one state tree (a tensor, or
+    dicts and tuples of them), walked along dst's structure."""
+    if isinstance(dst, dict):
+        if set(src) != set(dst):
+            raise ValueError(f"state keys {sorted(src)} do not match "
+                             f"{sorted(dst)}")
+        for k in dst:
+            _state_pairs(dst[k], src[k], out)
+    elif isinstance(dst, tuple):
+        if len(src) != len(dst):
+            raise ValueError(f"{len(src)} state entries, expected "
+                             f"{len(dst)}")
+        for d, s in zip(dst, src):
+            _state_pairs(d, s, out)
+    elif src is not dst:
+        if src.shape != dst.shape:
+            raise ValueError(f"state shape {tuple(src.shape)}, expected "
+                             f"{tuple(dst.shape)}")
+        out.append((dst, src))
+
+
+def _write_pairs(pairs: list) -> None:
+    """Copy each new value into its persistent leaf. A value that shares
+    storage with a leaf being written is cloned first, so no copy reads
+    what an earlier one overwrote."""
+    written = {d.untyped_storage().data_ptr() for d, _ in pairs}
+    srcs = [s.clone() if s.untyped_storage().data_ptr() in written else s
+            for _, s in pairs]
+    for (d, _), s in zip(pairs, srcs):
+        d.copy_(s)
 
 
 def time_table(sr: int, n_frames: int) -> np.ndarray:
@@ -366,10 +575,42 @@ class CompiledGraph:
         # renders under exact_biquad_scope of it
         self.exact_biquad = filters.exact_biquad_env()
         kinds = {st.kind for st in self.statics.values()}
-        self._has_fx = G.PLUGINFX in kinds
         self._uses_frames = bool(kinds.intersection(_FRAME_KINDS))
         self._uses_time = bool(kinds.intersection(_TIME_KINDS))
         self._ttab: torch.Tensor | None = None  # see _time_table
+        self._ttab_min_frames = 0  # the longest render seed_caps was given
+        # device constants the window program reads, built here: inside a
+        # capture nothing may be uploaded (band-pass gammas; each effect's
+        # static values with its device constants, fx.bind_static)
+        self._bp_gammas = {
+            vi: filters.band_pass_gammas(st.lgamma, st.hgamma, dev)
+            for vi, st in self.statics.items() if st.kind == G.BANDPASS}
+        self._fx_static = {
+            vi: fx.bind_static(fx.EFFECTS[st.fx_kind], sr,
+                               dict(st.fx_static), dev)
+            for vi, st in self.statics.items()
+            if st.kind == G.PLUGINFX and not st.fx_skip}
+        # the traced effect params: one persistent f32 vector in a layout
+        # fixed per graph, (vertex key, name, position) sorted by name,
+        # static params left out (reference compile.py:1113-1142)
+        slots = []
+        for vi in self.order:
+            st = self.statics[vi]
+            if st.kind == G.PLUGINFX:
+                skip = fx.EFFECTS[st.fx_kind].static_params
+                for name in sorted(plugin_host.param_values(
+                        st.fx_plugin_index)):
+                    if name not in skip:
+                        slots.append((vi, st.fx_plugin_index, name))
+        self._fx_layout = tuple((str(vi), name, i)
+                                for i, (vi, _, name) in enumerate(slots))
+        self._fx_slots = tuple((idx, name) for _, idx, name in slots)
+        self._fx_vec = torch.zeros(len(slots), dtype=torch.float32,
+                                   device=dev)
+        self._fx_params: dict[str, dict[str, torch.Tensor]] = {}
+        for vkey, name, i in self._fx_layout:
+            self._fx_params.setdefault(vkey, {})[name] = self._fx_vec[i]
+        self._fx_version: int | None = None  # PluginHost.version packed
 
         # fused SampleMulti groups: all SAMPLEMULTI vertices whose ONLY
         # consumer is the same vertex mix in one voice-mix call at that
@@ -425,6 +666,16 @@ class CompiledGraph:
             [v.wet for v in graph.vertices], dtype=torch.float32, device=dev
         )
 
+        # leads the program-cache key in place of the reference's spec
+        # (compile.py:429-439): the programs read this graph's tensors, so
+        # they are never shared with another graph
+        self.serial = next(_GRAPH_SERIALS)
+        # the memory pool this graph's programs capture into (on CUDA, made
+        # at a capture when none of its cached programs holds a graph)
+        self._graph_pool = None
+        # the vertex the program is at, for a failed capture's message
+        self._vertex_at: tuple = (None, "the window's set-up")
+
         # numeric device state + host bake carries
         self.num_state: dict[str, torch.Tensor] = {}
         self.carries: dict[int, Any] = {}
@@ -476,11 +727,16 @@ class CompiledGraph:
         self._rec_active: dict | None = None
         self._prebake_used = 0
         # counts for measurement: windows served from a chain, host bakes
-        # of render windows (seed_caps' walks are not counted) and windows
-        # rendered sharded across ranks
+        # of render windows (seed_caps' walks are not counted), windows
+        # rendered sharded across ranks, window programs made for the cache
+        # (a capture on CUDA) and windows run through a cached program (a
+        # replay on CUDA); the bytes the captures added to the graph's pool
         self.served_windows = 0
         self.live_bakes = 0
         self.sharded_windows = 0
+        self.captures = 0
+        self.replays = 0
+        self.pool_bytes = 0
         # per-fused-group pooled event arrays, keyed by FlowwBank version
         self._pool_cache: dict[int, tuple] = {}
         # per-(consumer, member) processed event arrays, keyed by the
@@ -488,19 +744,22 @@ class CompiledGraph:
         self._member_pool_cache: dict[tuple[int, int], tuple] = {}
         # per-consumer sample_len/base vectors (see _fused_member_vecs)
         self._fused_vecs: dict[int, tuple] = {}
-        # (PluginHost.version, packed traced effect params; see _pack_fx)
-        self._fx_cache: tuple | None = None
 
     def _scalar(self, v: float) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.float32, device=self.device)
 
     def _time_table(self, n_frames: int) -> torch.Tensor:
-        """The device copy of time_table(sr, n_frames), uploaded once per
-        size (a longer table has the shorter one as its prefix)."""
+        """The device copy of time_table(sr, n), n the larger of n_frames
+        and the render seed_caps was given, uploaded once per size (a
+        longer table has the shorter one as its prefix). A longer table
+        drops this graph's programs that read the shorter one: their key
+        is never looked up again."""
+        n_frames = max(n_frames, self._ttab_min_frames)
         if self._ttab is None or self._ttab.shape[0] < n_frames:
             self._ttab = torch.from_numpy(
                 time_table(self.sr, n_frames)
             ).to(self.device)
+            self._drop_programs(lambda key: key[-1] != 0)
         return self._ttab
 
     def _record_caps(self, key: str, name_key: tuple, kind: str,
@@ -515,8 +774,11 @@ class CompiledGraph:
         """The packed bake buffers of a window, uploaded to the graph's
         device: (ints, floats, layout)."""
         ints_buf, floats_buf, layout = _pack_bakes(bakes)
+        return (*self._upload_packed(ints_buf, floats_buf), layout)
+
+    def _upload_packed(self, ints_buf: np.ndarray, floats_buf: np.ndarray):
         return (torch.from_numpy(ints_buf).to(self.device),
-                torch.from_numpy(floats_buf).to(self.device), layout)
+                torch.from_numpy(floats_buf).to(self.device))
 
     def seed_caps(self, fb: FlowwBank, total_blocks: int, step: int,
                   prebake: bool | None = None) -> None:
@@ -530,7 +792,12 @@ class CompiledGraph:
         that takes the sharded path, which bakes live: its chain could
         never be served (reference compile.py:584-619). Host numpy,
         proportional to event count; idempotent; leaves graph and floww
-        state untouched."""
+        state untouched. Also sizes the time table to the whole render,
+        whose length is part of the program key (reference
+        compile.py:600-608)."""
+        if total_blocks > 0:
+            self._ttab_min_frames = max(self._ttab_min_frames,
+                                        total_blocks * self.bl)
         if total_blocks <= 0 or not self.carries:
             return
         do_prebake = self._prebake_on and prebake is not False
@@ -689,14 +956,16 @@ class CompiledGraph:
     _REC_MAX = 4       # recorded chains kept (LRU)
     _REC_MIN_NB = 64   # only render-scale windows are worth recording
 
-    def _record_window(self, fb: FlowwBank, t0: int, nb: int, ints, floats,
-                       layout, new_carries) -> None:
-        """Record one live-baked window (its uploaded buffers) into the
-        active recording chain, started with a snapshot of the carries
-        before the window. Called before self.carries is updated."""
+    def _record_window(self, fb: FlowwBank, t0: int, nb: int,
+                       ints: np.ndarray, floats: np.ndarray, layout,
+                       new_carries) -> None:
+        """Record one live-baked window (its packed host buffers, uploaded
+        here if kept) into the active recording chain, started with a
+        snapshot of the carries before the window. Called before
+        self.carries is updated."""
         if not self._prebake_on or nb < self._REC_MIN_NB:
             return
-        used = _nbytes(ints, floats)
+        used = ints.nbytes + floats.nbytes  # int32 / float32 on the device
         if self._prebake_used + used > self._prebake_budget:
             self._rec_finish()
             return
@@ -720,8 +989,8 @@ class CompiledGraph:
         delta = {vi: _copy_carry(c) for vi, c in new_carries.items()
                  if c != self.carries.get(vi)}
         rec["index"][(t0, fb.frame, nb)] = len(rec["wins"])
-        rec["wins"].append((ints, floats, layout, delta,
-                            *self._classify_delta(delta)))
+        rec["wins"].append((*self._upload_packed(ints, floats), layout,
+                            delta, *self._classify_delta(delta)))
         rec["next"] = (t0 + nb * self.bl, fb.frame + nb * self.bl)
         rec["bytes"] += used
         self._prebake_used += used
@@ -752,12 +1021,27 @@ class CompiledGraph:
 
     def release_chains(self) -> None:
         """Drop every prebaked and recorded chain, their device buffers
-        included (called on the graph a refresh replaces)."""
+        included, and this graph's window programs (called on the graph a
+        refresh replaces)."""
         self._prebaked = None
         self._recorded.clear()
         self._rec_active = None
         self._prebake_used = 0
         self._seeded_sigs.clear()  # a future seed must rebuild
+        self._drop_programs(lambda key: True)
+        self._graph_pool = None
+        self.pool_bytes = 0
+
+    def _drop_programs(self, which) -> None:
+        """Drop this graph's program-cache entries whose key `which`
+        selects."""
+        for key in [k for k, p in _PROGRAM_CACHE.items()
+                    if p.cg is self and which(k)]:
+            del _PROGRAM_CACHE[key]
+
+    def programs(self) -> list[_WindowProgram]:
+        """This graph's entries of the program cache, oldest use first."""
+        return [p for p in _PROGRAM_CACHE.values() if p.cg is self]
 
     def load_reference_state(
         self, num_state: dict[str, np.ndarray], carries: dict, t: int
@@ -777,20 +1061,21 @@ class CompiledGraph:
                 f"graph's {sorted(self.carries)}"
             )
         dev = self.device
+        pairs: list = []
         for k, v in num_state.items():
             if k.endswith(".bp"):
-                self.num_state[k] = BandPassState(
+                new = BandPassState(
                     prevs=torch.tensor(np.asarray(v.prevs, np.float32),
                                        device=dev),
                     first=torch.tensor(bool(np.asarray(v.first)),
                                        device=dev),
                 )
             elif k.endswith(".fx"):
-                self.num_state[k] = _tree_to_device(v, self.num_state[k], dev,
-                                                    k)
+                new = _tree_to_device(v, self.num_state[k], dev, k)
             else:
-                self.num_state[k] = torch.tensor(np.asarray(v, np.float32),
-                                                 device=dev)
+                new = torch.tensor(np.asarray(v, np.float32), device=dev)
+            _state_pairs(self.num_state[k], new, pairs)
+        _write_pairs(pairs)  # into the persistent buffers
         for vi, c in carries.items():
             cls = _CARRY_CLASSES[self.statics[vi].kind]
             port = _port_value(c)
@@ -804,34 +1089,22 @@ class CompiledGraph:
         self._break_prebake_chain()
 
     def _pack_fx(self) -> dict[str, dict[str, torch.Tensor]]:
-        """Traced effect parameters, uploaded as one f32 vector, as the
-        per-vertex dicts of 0-d views of it that the effects take. Names
-        are sorted; static params (EffectDef.static_params) are left out,
-        they were bound into _VertexStatic.fx_static at build. Memoized on
-        PluginHost.version: the layout is fixed per graph and the values
-        change only through the host's mutators (reference
-        compile.py:1113-1142)."""
-        ver = self.plugin_host.version
-        if self._fx_cache is not None and self._fx_cache[0] == ver:
-            return self._fx_cache[1]
-        keys: list[tuple[str, str]] = []
-        vals: list[float] = []
-        for vi in self.order:
-            st = self.statics[vi]
-            if st.kind != G.PLUGINFX:
-                continue
-            pv = self.plugin_host.param_values(st.fx_plugin_index)
-            skip = fx.EFFECTS[st.fx_kind].static_params
-            for name in sorted(pv):
-                if name not in skip:
-                    keys.append((str(vi), name))
-                    vals.append(float(pv[name]))
-        vec = torch.tensor(vals, dtype=torch.float32, device=self.device)
-        params: dict[str, dict[str, torch.Tensor]] = {}
-        for (vkey, name), v in zip(keys, vec):
-            params.setdefault(vkey, {})[name] = v
-        self._fx_cache = (ver, params)
-        return params
+        """Traced effect parameters as the per-vertex dicts of 0-d views
+        of the graph's one f32 vector that the effects take. At each
+        PluginHost.version the current values are copied into the vector
+        (one upload), so every program reading it sees them; the layout is
+        fixed per graph (reference compile.py:1113-1142)."""
+        ver = self.plugin_host.version if self._fx_slots else None
+        if ver != self._fx_version:
+            pv = {}
+            vals = []
+            for idx, name in self._fx_slots:
+                if idx not in pv:
+                    pv[idx] = self.plugin_host.param_values(idx)
+                vals.append(float(pv[idx][name]))
+            self._fx_vec.copy_(torch.tensor(vals, dtype=torch.float32))
+            self._fx_version = ver
+        return self._fx_params
 
     # -- normalization controls (reference graph.rs:195-220) ---------------
     def _normalize_vis(self):
@@ -840,15 +1113,15 @@ class CompiledGraph:
 
     def reset_normalize_vertices(self) -> None:
         for vi in self._normalize_vis():
-            self.num_state[f"{vi}.max"] = self._scalar(1e-6)
+            self.num_state[f"{vi}.max"].fill_(1e-6)
 
     def reset_scan_normalize_vertices(self) -> None:
         for vi in self._normalize_vis():
-            self.num_state[f"{vi}.scan_max"] = self._scalar(0.0)
+            self.num_state[f"{vi}.scan_max"].fill_(0.0)
 
     def apply_scan_normalize_vertices(self) -> None:
         for vi in self._normalize_vis():
-            self.num_state[f"{vi}.max"] = self.num_state[f"{vi}.scan_max"]
+            self.num_state[f"{vi}.max"].copy_(self.num_state[f"{vi}.scan_max"])
 
     def get_normalization_values(self) -> list[tuple[str, float]]:
         return [
@@ -900,7 +1173,9 @@ class CompiledGraph:
                 ])
         for vi in self.order:
             if self.statics[vi].kind == G.BANDPASS:
-                self.num_state[f"{vi}.bp"] = BandPassState.init(self.device)
+                bp = self.num_state[f"{vi}.bp"]
+                bp.prevs.zero_()
+                bp.first.fill_(True)
         self.t = t
         self.graph.t = t
         self._break_prebake_chain()
@@ -915,7 +1190,8 @@ class CompiledGraph:
 
     # -- rendering ----------------------------------------------------------
     def render_window(
-        self, fb: FlowwBank, nb: int, is_scan: bool = False
+        self, fb: FlowwBank, nb: int, is_scan: bool = False,
+        eager: bool = False,
     ) -> torch.Tensor:
         """Render `nb` blocks starting at the current graph time. The floww
         bank cursor must already sit at the same frame (the engine aligns
@@ -924,8 +1200,12 @@ class CompiledGraph:
 
         A window on a chain's grid with the chain's schedule and carry
         lineage is served from it (its stored device buffers, no bake and
-        no upload); any other is baked live, uploaded, and recorded when
-        it is render-sized (reference compile.py:1016-1071)."""
+        no upload); any other is baked live, and recorded when it is
+        render-sized. Either way its buffers are copied into the inputs of
+        the window program `_get_fn` finds, which runs it (reference
+        compile.py:1016-1071). `eager` runs the eager program on them
+        instead, outside the cache: for measurement, and for profiles that
+        synchronize inside the program."""
         t0 = self.t
         served = self._prebake_take(fb, t0, nb)
         if served is not None:
@@ -934,13 +1214,26 @@ class CompiledGraph:
         else:
             self._reset_chain_expects()
             bakes, new_carries = self._bake_all(fb, t0, nb)
-            ints, floats, layout = self._upload(bakes)
+            ints, floats, layout = _pack_bakes(bakes)
             self.live_bakes += 1
             self._record_window(fb, t0, nb, ints, floats, layout,
                                 new_carries)
-        with filters.exact_biquad_scope(self.exact_biquad):
-            audio = self._program(_unpack_bakes(ints, floats, layout), t0,
-                                  nb, is_scan)
+            ints, floats = torch.from_numpy(ints), torch.from_numpy(floats)
+        self._pack_fx()
+        ttab_len = int(self._time_table(t0 + nb * self.bl).shape[0]) \
+            if self._uses_time else 0
+        if eager:
+            with filters.exact_biquad_scope(self.exact_biquad):
+                audio = self._program(_unpack_bakes(
+                    ints.to(self.device), floats.to(self.device), layout),
+                    t0, nb, is_scan)
+        else:
+            fn = self._get_fn(nb, is_scan, layout, ttab_len)
+            fn.ints.copy_(ints)
+            fn.floats.copy_(floats)
+            fn.t0.fill_(t0)
+            audio = fn()
+            self.replays += 1
         if served is None:
             self._apply_carries(new_carries)
         else:
@@ -974,6 +1267,9 @@ class CompiledGraph:
                        for f, a in tbl.items()}
                 for vkey, tbl in bakes.items()}
         ints, floats, layout = self._upload(mine)
+        self._pack_fx()
+        if self._uses_time:
+            self._time_table(t0 + nb_total * self.bl)
         audio = self._program(_unpack_bakes(ints, floats, layout), t0, nb,
                               is_scan, mesh)
         self._apply_carries(new_carries)
@@ -1274,6 +1570,20 @@ class CompiledGraph:
         return {"begins": begins, "vel": vel, "member": member}
 
     # -- the window program ---------------------------------------------------
+    def _get_fn(self, nb: int, is_scan: bool, layout: tuple,
+                ttab_len: int) -> _WindowProgram:
+        """The cached program of this window shape, made (captured on
+        CUDA) on first use (reference compile.py:1584-1604)."""
+        # the effect-parameter layout and the biquad lane, in the
+        # reference's key, are fixed per graph here
+        key = (self.serial, nb, is_scan, layout, ttab_len)
+        fn = _cache_get(key)
+        if fn is None:
+            fn = _WindowProgram(self, nb, is_scan, layout)
+            _cache_put(key, fn)
+            self.captures += 1
+        return fn
+
     def _fused_mix(self, consumer: int, bakes, nb: int) -> torch.Tensor:
         """One voice-mix call for a whole SampleMulti group: per-vertex
         pan/gain folds into per-voice channel amps; members over different
@@ -1294,29 +1604,37 @@ class CompiledGraph:
             nb, self.bl,
         )
 
-    def _program(self, bakes, t0: int, nb: int, is_scan: bool,
-                 mesh=None) -> torch.Tensor:
-        """The window program over nb blocks from graph time t0; under a
-        mesh, this rank's nb blocks of the window, from the global frame
-        t0 + rank*nb*bl (compile.py:1641-1656)."""
+    def _program(self, bakes, t0, nb: int, is_scan: bool, mesh=None,
+                 write_state: bool = True) -> torch.Tensor:
+        """The window program over nb blocks from graph time t0 (a Python
+        int or a 0-d int64 tensor); under a mesh, this rank's nb blocks of
+        the window, from the global frame t0 + rank*nb*bl
+        (compile.py:1641-1656). Reads only device inputs: the time table
+        must already cover the window (`_time_table`) and the effect
+        params be packed (`_pack_fx`). Writes the new numeric state into
+        `num_state`'s tensors at its end, unless `write_state` is False
+        (a capture's warm-up)."""
         bl = self.bl
         T = nb * bl
+        self._vertex_at = (None, "the window's set-up")
         tf = t0 if mesh is None else t0 + mesh.rank * T  # first frame
         bufs: dict[int, torch.Tensor] = {}
-        ns = self.num_state
-        fx_params = self._pack_fx() if self._has_fx else {}
+        ns = dict(self.num_state)
+        fx_params = self._fx_params
         if self._uses_frames:
-            frames = torch.arange(tf, tf + T, dtype=torch.int64,
-                                  device=self.device)
+            frames = tf + torch.arange(T, dtype=torch.int64,
+                                       device=self.device)
         if self._uses_time:
-            ttab = self._time_table(tf + T)
-            time2d = ttab[tf:tf + T].reshape(nb, bl)
-            ib = ttab[:bl]  # f32(i)/f32(sr), i in block
+            # gathered at the window's frames: the same values as a slice
+            # at a host offset, with the offset on the device
+            time2d = self._ttab[frames].reshape(nb, bl)
+            ib = self._ttab[:bl]  # f32(i)/f32(sr), i in block
         for vi in self.order:
             st = self.statics[vi]
             kind = st.kind
             if vi in self._fused_members:
                 continue  # mixed at the consumer
+            self._vertex_at = (vi, kind)
             ins = []
             for j in self.in_edges[vi]:
                 if j in self._fused_members:
@@ -1379,15 +1697,21 @@ class CompiledGraph:
             elif kind == G.BANDPASS:
                 out, ns[f"{vi}.bp"] = filters.band_pass_timeline(
                     x, ns[f"{vi}.bp"], st.lgamma, st.hgamma, st.pass_mode,
-                    self._wets[vi], mesh,
+                    self._wets[vi], mesh, g=self._bp_gammas[vi],
                 )
             elif st.fx_skip:  # G.PLUGINFX with wet < 1e-4
                 out = x  # the input passes, the state stays as it was
             else:  # G.PLUGINFX
                 y, ns[f"{vi}.fx"] = fx.EFFECTS[st.fx_kind].process(
                     x, ns[f"{vi}.fx"], fx_params.get(key, {}), self.sr,
-                    dict(st.fx_static), mesh,
+                    self._fx_static[vi], mesh,
                 )
                 out = x + self._wets[vi] * (y - x)
             bufs[vi] = mix.post(out, self._angles[vi], self._gains[vi])
+        self._vertex_at = (None, "the state write-back")
+        if write_state:
+            pairs: list = []
+            for k, leaf in self.num_state.items():
+                _state_pairs(leaf, ns[k], pairs)
+            _write_pairs(pairs)
         return bufs[self.output]

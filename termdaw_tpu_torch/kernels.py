@@ -155,6 +155,18 @@ def biquad_seq_lib() -> ctypes.CDLL:
                  [vp] * 9 + [ctypes.c_longlong, ctypes.c_int, vp])
 
 
+def load_all(device: torch.device) -> None:
+    """Build every kernel (in parallel) and load its library on `device`:
+    what a CUDA-graph capture needs done before it starts, since nothing
+    may be compiled or loaded while a stream captures. Cheap once done."""
+    if len(_LIBS) == len(KERNELS):
+        return
+    build_all(KERNELS)
+    with torch.cuda.device(device):
+        for name in KERNELS:
+            globals()[f"{name}_lib"]()
+
+
 SCAN_THREADS = 256            # scan_tile.cuh kThreads
 SCAN_SHARED_BYTES = 48 * 1024  # scan_tile.cuh kSharedBytes
 # each tiled scan's op: (input planes, bytes of one per-warp total, the

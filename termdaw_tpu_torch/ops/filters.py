@@ -94,6 +94,18 @@ class BandPassState(NamedTuple):
         )
 
 
+def _gammas32(lgamma: float, hgamma: float) -> np.ndarray:
+    return np.asarray([lgamma, lgamma, hgamma, hgamma], np.float32)
+
+
+def band_pass_gammas(lgamma: float, hgamma: float,
+                     device: torch.device) -> torch.Tensor:
+    """The lanes' gammas (lL, lR, hL, hR) as an f32 [4] tensor on
+    `device`, uploaded once by whoever renders many windows (a captured
+    window program may not upload)."""
+    return torch.from_numpy(_gammas32(lgamma, hgamma)).to(device)
+
+
 def band_pass_timeline(
     x: torch.Tensor,           # [F, 2]
     state: BandPassState,
@@ -102,11 +114,13 @@ def band_pass_timeline(
     pass_mode: bool,
     wet: torch.Tensor,         # 0-d f32
     mesh: Mesh | None = None,
+    g: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, BandPassState]:
     """Filter a [F, 2] window (this rank's slice under a mesh, primed from
-    the global first frame, rank 0's). Returns (out, new_state); the state
-    is the global stream's, equal on every rank."""
-    g32 = np.asarray([lgamma, lgamma, hgamma, hgamma], np.float32)
+    the global first frame, rank 0's). `g` is band_pass_gammas(lgamma,
+    hgamma) on x's device, made here when not given. Returns (out,
+    new_state); the state is the global stream's, equal on every rank."""
+    g32 = _gammas32(lgamma, hgamma)
     lmul = 0.0 if g32[0] == 0.0 else 1.0
     hmul = 0.0 if g32[2] == 0.0 else 1.0
     skip = wet < 0.0001
@@ -116,7 +130,8 @@ def band_pass_timeline(
 
     x_first = x[0] if mesh is None else all_gather(x[0], mesh)[0]
     y0 = torch.where(state.first, x_first.repeat(2), state.prevs)  # [4]
-    g = torch.from_numpy(g32).to(x.device)
+    if g is None:
+        g = band_pass_gammas(lgamma, hgamma, x.device)
     b = g * torch.cat([x, x], dim=1)  # [F, 4] lanes lL lR hL hR
     if mesh is None:
         y = affine_scan(b, 1.0 - g, y0)

@@ -209,6 +209,18 @@ def static_values(eff: EffectDef, params: dict) -> dict:
             for k in eff.static_params}
 
 
+def bind_static(eff: EffectDef, sr: int, static: dict,
+                device: torch.device) -> dict:
+    """An effect's static values with the device constants derived from
+    them (the eq3's biquad coefficients, key "coefs"), uploaded once for
+    every window a graph renders: a captured window program may not
+    upload."""
+    out = dict(static)
+    if eff.kind == "eq3":
+        out["coefs"] = _eq3_coefs(sr, *_eq3_freqs(sr, static), device)
+    return out
+
+
 def _reverb_lines(sr: int) -> tuple[list[int], list[int]]:
     combs = []
     for d in _COMB_TUNING:
@@ -419,17 +431,26 @@ def _eq3_coefs(sr: int, f_lo: float, f_hi: float, device):
     return tuple(both[0]), tuple(both[1])
 
 
-def _eq3_process(x, state, params, sr, static, mesh=None):
-    """Crossover frequencies are static params bound at graph build (the
-    biquad coefficients are host-computed); gains are traced."""
-    # crossovers clamped away from Nyquist where the biquad degenerates
+def _eq3_freqs(sr: int, static: dict) -> tuple[float, float]:
+    """The crossovers, clamped away from Nyquist where the biquad
+    degenerates."""
     f_lo = min(max(float(static["low_freq"]), 10.0), 0.2 * sr)
     f_hi = min(max(float(static["high_freq"]), 2.0 * f_lo), 0.35 * sr)
+    return f_lo, f_hi
+
+
+def _eq3_process(x, state, params, sr, static, mesh=None):
+    """Crossover frequencies are static params bound at graph build (the
+    biquad coefficients are host-computed, uploaded by bind_static or
+    here); gains are traced."""
     twenty = _const(20.0, x)
     g_lo = torch.pow(10.0, params["low_gain"] / twenty)
     g_mid = torch.pow(10.0, params["mid_gain"] / twenty)
     g_hi = torch.pow(10.0, params["high_gain"] / twenty)
-    c_lo, c_hi = _eq3_coefs(sr, f_lo, f_hi, x.device)
+    if "coefs" in static:
+        c_lo, c_hi = static["coefs"]
+    else:
+        c_lo, c_hi = _eq3_coefs(sr, *_eq3_freqs(sr, static), x.device)
     xx = torch.cat([x, x], dim=1)  # [T, 4]
     t0, s0 = biquad_apply(xx, c_lo, state["st0"], mesh)
     t1, s1 = biquad_apply(t0, c_lo, state["st1"], mesh)

@@ -1,7 +1,7 @@
 """Sample-playback window kernels: SampleLoop, SampleLerp, SampleMulti.
 
-Port of termdaw_tpu/ops/sampler.py. The window start is a host int where
-a function takes `t0`, so slice offsets need no device sync. SampleMulti
+Port of termdaw_tpu/ops/sampler.py. The window start `t0` may be a device
+scalar (a captured program's input), so offsets are gathers. SampleMulti
 renders through ops/voices.py on the render path; `sample_multi` here is
 the reference's plain masked gather, kept as a second oracle.
 """
@@ -11,14 +11,15 @@ from __future__ import annotations
 import torch
 
 
-def sample_loop(sample: torch.Tensor, t0: int, T: int) -> torch.Tensor:
+def sample_loop(sample: torch.Tensor, t0, T: int) -> torch.Tensor:
     """Loop the bank sample with modulo indexing (extensions.rs:331-341):
-    sample [L, 2] -> frames t0 .. t0+T-1 as [T, 2]. Gather-free, as in the
-    reference: tile the sample to cover T+L frames and slice at t0 mod L."""
+    sample [L, 2] -> frames t0 .. t0+T-1 as [T, 2]. t0 is a Python int or
+    a 0-d integer tensor on the sample's device (a captured window
+    program's): one gather at (t0 + i) mod L, the values of the
+    reference's slice of the tiled sample at t0 mod L."""
     L = sample.shape[0]
-    reps = -(-(T + L) // L)
-    start = t0 % L
-    return sample.repeat(reps, 1)[start:start + T]
+    i = torch.arange(T, dtype=torch.int64, device=sample.device)
+    return sample[torch.remainder(t0 + i, L)]
 
 
 def sample_multi(

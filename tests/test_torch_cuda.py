@@ -8,6 +8,8 @@ imports no JAX, so it also runs where only the port is installed:
 
 Without a card every test skips."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -19,8 +21,8 @@ from termdaw_tpu_torch.ops import filters, fx, scan, voices
 from termdaw_tpu_torch.parallel.mesh import gather
 from termdaw_tpu_torch.tools import shard_render
 from termdaw_tpu_torch.utils.fixtures import (
-    load_state, read_wav_ints, write_c2_project, write_c3_project,
-    write_c4_project, write_c5_project,
+    load_state, read_wav_ints, write_c1_project, write_c2_project,
+    write_c3_project, write_c4_project, write_c5_project,
 )
 
 pytestmark = pytest.mark.cuda
@@ -525,13 +527,17 @@ def test_biquad_seq_wrapper_raises_on_card(cuda):
 
 def test_small_c4_exact_lane_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     """TERMDAW_EXACT_BIQUAD=1: the eq3 runs the kernel (4 launches a
-    window), never the complex scan, within one count of the CPU."""
+    window: the one window replays a captured program holding 4, and the
+    wrapper counts the capture's warm-up and the capture), never the
+    complex scan, within one count of the CPU."""
     monkeypatch.setenv("TERMDAW_EXACT_BIQUAD", "1")
     write_c4_project(tmp_path, 2.0, 8000, 256, render_sr=8000)
     st = load_state(tmp_path, cuda)
     n0, c0 = filters.biquad_seq_launches, scan.complex_launches
     st.render()
-    assert filters.biquad_seq_launches - n0 == 4
+    (prog,) = st.compiled.programs()
+    assert prog.kernels["biquad_seq"] == 4 and prog.replays == 1
+    assert filters.biquad_seq_launches - n0 == 2 * 4
     assert scan.complex_launches == c0
     got, _ = read_wav_ints(tmp_path / "outp.wav")
     load_state(tmp_path, torch.device("cpu")).render()
@@ -565,6 +571,203 @@ def test_chain_served_c5_render_on_card_bit_identical(cuda, tmp_path,
     assert live.compiled.served_windows == 0
     for got, w in zip(served, want):
         np.testing.assert_array_equal(got, w)
+
+
+# -- the window-program cache: captured graphs --------------------------
+
+_SMALL = {
+    "c1": lambda d: write_c1_project(d, 2.0, 8000, 256, render_sr=4000),
+    "c2": lambda d: write_c2_project(d, 2.0, 8000, 256),
+    "c3": lambda d: write_c3_project(d, 2.0, 8000, 256),
+    "c4": lambda d: write_c4_project(d, 2.0, 8000, 256, render_sr=8000),
+    "c5": lambda d: write_c5_project(d, 2.0, 8000, 256, n_tracks=8,
+                                     hit_sr=16000, bd=16),
+}
+
+
+def _drive(st, nb: int) -> list[np.ndarray]:
+    """Windows of nb blocks from t0 = 0, a seek, a parameter change (the
+    compressor's ratio where the project has one), a Normalize reset, a
+    normalize scan and apply, and windows after each: the audio and then
+    every numeric state leaf."""
+    cg, out = st.compiled, []
+
+    def windows(n):
+        for _ in range(n):
+            st.fb.set_time(cg.get_time())
+            out.append(cg.render_window(st.fb, nb).cpu().numpy())
+            st.fb.advance_blocks(nb)
+
+    windows(3)
+    cg.set_time(1000)
+    windows(2)
+    if st.host.get_index("comp") is not None:
+        st.host.set_value("comp", "ratio", 6.0)
+        windows(2)
+    cg.reset_normalize_vertices()
+    windows(1)
+    st.scan_exact()
+    windows(2)
+    for k in sorted(cg.num_state):
+        out += [t.cpu().numpy() for t in _state_leaves(cg.num_state[k])]
+    return out
+
+
+def _state_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _state_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _state_leaves(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("cfg", sorted(_SMALL))
+@pytest.mark.parametrize("nb", [1, 4, "render"])
+def test_replay_bit_identical_to_eager_on_card(cuda, tmp_path, cfg, nb):
+    """Every window replays a captured program (replays == windows) whose
+    audio and state are bit-identical to the eager program's, across a
+    seek, a parameter change, a Normalize reset and a scan; at the render
+    size, two renders' WAVs (served windows among them)."""
+    packets = _SMALL[cfg](tmp_path) or b""
+    wav = tmp_path / ("mix.wav" if cfg == "c5" else "outp.wav")
+    got = {}
+    for mode in ("eager", "graphs"):
+        st = load_state(tmp_path, cuda, packets)
+        if mode == "eager":
+            st.compiled.render_window = functools.partial(
+                type(st.compiled).render_window, st.compiled, eager=True)
+        if nb == "render":
+            got[mode] = []
+            for _ in range(2):
+                st.render()
+                got[mode].append(read_wav_ints(wav)[0])
+            st.scan_exact()
+            st.render()
+            got[mode].append(read_wav_ints(wav)[0])
+        else:
+            got[mode] = _drive(st, nb)
+        cg = st.compiled
+        if mode == "graphs":
+            assert cg.replays == cg.served_windows + cg.live_bakes > 0
+            # a seek past the time table drops the programs keyed to it
+            assert cg.captures >= len(cg.programs()) > 0
+            assert all(p.graph is not None for p in cg.programs())
+        else:
+            assert cg.replays == cg.captures == 0
+    assert len(got["eager"]) == len(got["graphs"])
+    for a, b in zip(got["eager"], got["graphs"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_served_window_equals_live_on_card(cuda, tmp_path, monkeypatch):
+    """The first c5 window served from the prebaked chain replays the same
+    program as the live-baked one and gives the same audio, bit for bit."""
+    packets = _SMALL["c5"](tmp_path)
+    audio = {}
+    for mode in ("served", "live"):
+        if mode == "live":
+            monkeypatch.setenv("TERMDAW_PREBAKE", "0")
+        st = load_state(tmp_path, cuda, packets)
+        cg = st.compiled
+        cg.seed_caps(st.fb, st.cs, st.cs)
+        st.fb.set_time(0)
+        audio[mode] = cg.render_window(st.fb, st.cs).cpu()
+        assert (cg.served_windows, cg.live_bakes) == (
+            (1, 0) if mode == "served" else (0, 1))
+        assert cg.replays == 1
+    assert torch.equal(audio["served"], audio["live"])
+
+
+def test_capture_with_a_pageable_upload_raises_on_card(cuda, tmp_path,
+                                                        monkeypatch):
+    """A window program that uploads from pageable host memory cannot be
+    captured: the render raises, naming the vertex, and does not fall
+    back to the eager program."""
+    from termdaw_tpu_torch.ops import sampler
+
+    _SMALL["c1"](tmp_path)
+    st = load_state(tmp_path, cuda)
+    loop = sampler.sample_loop
+
+    def uploading(sample, t0, T):
+        one = torch.from_numpy(np.ones(1, np.float32)).to(sample.device)
+        return loop(sample, t0, T) * one
+
+    monkeypatch.setattr(sampler, "sample_loop", uploading)
+    with pytest.raises(RuntimeError, match=r"capturing the window program "
+                       r"failed in vertex .* \(sampleloop\)"):
+        st.render()
+    assert st.compiled.replays == 0
+    monkeypatch.setattr(sampler, "sample_loop", loop)
+    fresh = load_state(tmp_path, cuda)
+    fresh.render()
+    assert fresh.compiled.replays > 0
+
+
+_ENQUEUES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
+             "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def test_replayed_c4_window_host_launches_on_card(cuda, tmp_path):
+    """A replayed c4 window, served or live, enqueues at most 8 operations
+    from the host (the profiler's CPU-side runtime rows): the bake copies,
+    t0, one graph launch and the audio's copy out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _SMALL["c4"](tmp_path)
+    st = load_state(tmp_path, cuda)
+    cg = st.compiled
+    cg.seed_caps(st.fb, st.cs, st.cs)
+    fresh = {vi: type(c)() for vi, c in cg.carries.items()}
+    st.fb.set_time(0)
+    cg.render_window(st.fb, st.cs)  # served; captures the program
+    for served in (True, False):
+        # the song's start again, from the same carries: the same tables
+        cg.set_time(0)
+        st.fb.set_time(0)
+        cg._apply_carries(dict(fresh))
+        cg._prebake_on = served
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            cg.render_window(st.fb, st.cs)
+            torch.cuda.synchronize()
+        rows = [e.name for e in prof.events() if e.name in _ENQUEUES]
+        assert rows.count("cudaGraphLaunch") == 1, rows
+        assert len(rows) <= 8, rows
+    assert (cg.captures, cg.replays) == (1, 3)
+    assert (cg.served_windows, cg.live_bakes) == (2, 1)
+
+
+def test_programs_share_the_graphs_pool_on_card(cuda, tmp_path):
+    """A graph's programs capture into one memory pool, which a refresh
+    lets go; its pool bytes are the sum of what each capture added. Once
+    none of its programs is left, a capture takes a new pool."""
+    _SMALL["c4"](tmp_path)
+    st = load_state(tmp_path, cuda)
+    cg = st.compiled
+    for nb in (1, 4, 1, 8):
+        st.fb.set_time(cg.get_time())
+        cg.render_window(st.fb, nb)
+        st.fb.advance_blocks(nb)
+    progs = cg.programs()
+    assert cg.captures == len(progs) == 3 and cg.replays == 4
+    assert cg._graph_pool is not None
+    assert all(p.graph.pool() == cg._graph_pool for p in progs)
+    assert cg.pool_bytes == sum(p.pool_bytes for p in progs) > 0
+    # a window past the time table grows it and drops every program: the
+    # next capture takes a new pool (the old one, graphs gone, takes none)
+    pool, n = cg._graph_pool, cg._ttab.shape[0]
+    del progs
+    cg.set_time(n - cg.bl)
+    st.fb.set_time(cg.get_time())
+    audio = cg.render_window(st.fb, 4)
+    assert torch.isfinite(audio).all()
+    assert cg._ttab.shape[0] == 2 * n and cg.captures == 4
+    assert len(cg.programs()) == 1 and cg._graph_pool != pool
+    st.refresh()
+    assert cg.programs() == [] and cg._graph_pool is None
+    assert cg.pool_bytes == 0
 
 
 # -- the sharded scans on the card: 2 ranks ------------------------------
