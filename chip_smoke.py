@@ -141,7 +141,22 @@ phase 12 gates those of a replayed c4 render against its device rows.
    and 32 and the pool with those programs in. Gated: c4's replayed windows
    enqueue at most 8 operations each. Then phase 15's stream session
    again on the eager program, both sessions' underruns, leads and
-   window sizes side by side.
+   window sizes side by side;
+20. the native host library (termdaw_tpu_torch/native/, compiled with
+   g++ in phase 2 into termdaw_tpu_torch/build/): the compiler's version,
+   the build's seconds (or "cached") and the .so; c4 at 24 bits on the
+   card from graphs (all four default-path kernels launched), its WAV
+   written through the native pack24 (counted in `native.calls`) and
+   through the numpy body in turns, 3 renders each, byte-identical, and
+   within phase 5's bound of the port's CPU render; the `render
+   fetch+write` span and the render() wall each way beside the median of
+   5 render_device walls; the render's ints packed and unpacked native
+   and numpy (medians of 5, in turns). Then phase 15's stream bytes
+   decoded in 4096-byte reads and in one blob, native (scans counted)
+   and numpy, the same packets; the two headers whose declared size the
+   scanner rejects (2^25 events, 2^29 bytes of text) raising PacketError;
+   a 30 s 24-bit sample loaded by SampleBank both ways (unpacks counted),
+   the same samples.
 
 Then the card line, the kernels line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -149,10 +164,12 @@ Then the card line, the kernels line, and as the last line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -185,6 +202,7 @@ STREAM_SECONDS, STREAM_PERIOD_S = 10.0, 0.1   # phase 15's writer
 # catch-up loop (as in the reference), so the session has no end of its own
 STREAM_DEADLINE_S = 30.0
 SHARD_RANKS = 4                               # phase 18
+NATIVE_RENDERS = 4           # phase 20: renders each way, one cold
 # torch.profiler now and then returns a trace without device rows: a
 # trace is taken again up to this many times, and the empty ones counted
 PROFILE_TRIES = 5
@@ -888,6 +906,20 @@ def trace_breakdown(path: Path, top: int = 8) -> dict:
                     self_us.items(), key=lambda kv: -kv[1])[:top]]}
 
 
+def stream_packets(k: int, at: np.float32) -> bytes:
+    """The k-th write of phase 15's writer, its events at `at` seconds: a
+    drum hit, and every fifth write a note on and off."""
+    from termdaw_tpu_torch.fileio.packets import encode_events
+
+    blob = encode_events("drums", np.asarray([[0.0, at, 38.0, 0.9]],
+                                             np.float32))
+    if k % 5 == 0:
+        note = 48 + (k // 5) % 12
+        blob += encode_events("keys", np.asarray(
+            [[0.0, at, note, 0.8], [0.0, at + 0.4, note, 0.0]], np.float32))
+    return blob
+
+
 def stream_session(fixtures, d: Path, device, eager: bool = False) -> dict:
     """Phase 15: run_stream_workflow on `device` over the live c4 project
     in d, fed through an os.pipe by a writer thread (a drum hit every
@@ -901,7 +933,6 @@ def stream_session(fixtures, d: Path, device, eager: bool = False) -> dict:
     import threading
 
     from termdaw_tpu_torch.engine.player import Player
-    from termdaw_tpu_torch.fileio.packets import encode_events
     from termdaw_tpu_torch.workflows.stream import run_stream_workflow
 
     st = fixtures.load_state(d, device)
@@ -929,13 +960,7 @@ def stream_session(fixtures, d: Path, device, eager: bool = False) -> dict:
         with os.fdopen(w, "wb", buffering=0) as out:
             while (now := time.perf_counter() - t0) < STREAM_SECONDS:
                 at = np.float32(now + 0.3)
-                blob = encode_events("drums", np.asarray(
-                    [[0.0, at, 38.0, 0.9]], np.float32))
-                if k % 5 == 0:
-                    note = 48 + (k // 5) % 12
-                    blob += encode_events("keys", np.asarray(
-                        [[0.0, at, note, 0.8], [0.0, at + 0.4, note, 0.0]],
-                        np.float32))
+                blob = stream_packets(k, at)
                 out.write(blob)
                 sent["packets"] += 1
                 if sent["first_event_s"] is None:
@@ -956,6 +981,216 @@ def stream_session(fixtures, d: Path, device, eager: bool = False) -> dict:
     sent["wall_s"] = time.perf_counter() - sent.pop("t0")
     return {"state": st, "sink": sink, "sizes": sizes,
             "version_before": version, **sent}
+
+
+@contextlib.contextmanager
+def native_off():
+    """The native library unloaded for the body: the fileio modules take
+    their numpy paths."""
+    from termdaw_tpu_torch import native
+
+    saved = native._lib, native._tried
+    native._lib, native._tried = None, True
+    try:
+        yield
+    finally:
+        native._lib, native._tried = saved
+
+
+def turns(fns: dict, reps: int = 5) -> dict:
+    """Each fn called reps times, in turns (forward, then backward), its
+    wall in ms: {name: (median ms, the last result)}."""
+    ms: dict[str, list[float]] = {k: [] for k in fns}
+    last = {}
+    for i in range(reps):
+        for k in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+            t0 = time.perf_counter()
+            last[k] = fns[k]()
+            ms[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: (statistics.median(v), last[k]) for k, v in ms.items()}
+
+
+def native_render(fixtures, tmp: Path, cuda, reset_counts) -> dict:
+    """Phase 20, the render: c4 at 24 bits on the card from graphs, two
+    States of it rendered in lockstep, one writing its WAV through the
+    native pack24 and one through the numpy body (a render's effect state
+    carries into the next, so the k-th renders are compared), in turns:
+    byte-identical; the `render fetch+write` span and the render() wall
+    each way; the render's ints packed and unpacked both ways; the first
+    WAV against the port's CPU render, as in phase 5."""
+    from termdaw_tpu_torch import native
+    from termdaw_tpu_torch.engine import state as state_mod
+    from termdaw_tpu_torch.fileio import wav as wavio
+
+    check(native.get_lib() is not None,
+          f"the native library did not load: {native.load_error}")
+    cxx = subprocess.run([*native.compiler(), "--version"],
+                         capture_output=True, text=True, timeout=60)
+    check(cxx.returncode == 0, f"{native.compiler()} --version failed")
+    built = native.build_seconds
+    lib = {"compiler": " ".join(native.compiler()),
+           "compiler_version": cxx.stdout.splitlines()[0],
+           "build_s": "cached" if built is None else built,
+           "so": str(native.lib_path().relative_to(ROOT))}
+    d = tmp / "c4_24"
+    fixtures.write_c4_project(d, SECONDS, SR, BL, render_sr=44100, bd=24)
+    wav = d / "outp.wav"
+    reset_counts()
+    sts = {way: fixtures.load_state(d, cuda) for way in ("native", "numpy")}
+
+    spans: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def timed_span(name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            spans[name] = (time.perf_counter() - t0) * 1e3
+
+    runs: dict[str, list[dict]] = {"native": [], "numpy": []}
+    wavs: dict[str, list[bytes]] = {"native": [], "numpy": []}
+    orig_span = state_mod.span
+    state_mod.span = timed_span
+    try:
+        for i in range(NATIVE_RENDERS):
+            for way in ("native", "numpy")[::1 if i % 2 == 0 else -1]:
+                n0 = native.calls["pack24"]
+                with (native_off() if way == "numpy" else
+                      contextlib.nullcontext()):
+                    t0 = time.perf_counter()
+                    sts[way].render()
+                    wall = time.perf_counter() - t0
+                check((native.calls["pack24"] > n0) == (way == "native"),
+                      f"a {way} render's pack24 calls: "
+                      f"{native.calls['pack24'] - n0}")
+                wavs[way].append(wav.read_bytes())
+                runs[way].append({
+                    "render_wall_ms": wall * 1e3,
+                    "fetch_write_ms": spans["render fetch+write"],
+                    "windows_ms": spans["render windows"]})
+    finally:
+        state_mod.span = orig_span
+    for i, (a, b) in enumerate(zip(wavs["native"], wavs["numpy"])):
+        check(a == b, f"render {i + 1}: the 24-bit c4 WAV written through "
+                      f"the native pack24 differs from the numpy one")
+    st = sts["native"]
+    replays = check_replays(st, "c4 at 24 bits")
+    launches = path_launches(st.compiled)
+    for k in ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan"):
+        check(launches.get(k, 0) > 0,
+              f"the 24-bit c4 render launched no {k} kernel")
+    device_s = wall_render(st, 5)
+    first = d / "first.wav"
+    first.write_bytes(wavs["native"][0])
+    gpu, rate = fixtures.read_wav_ints(first)
+    ints = gpu.astype(np.int32)
+    raw = wavio._pack24_np(ints)
+    pack = turns({"native": lambda: native.pack24(ints),
+                  "numpy": lambda: wavio._pack24_np(ints)})
+    unpack = turns({"native": lambda: native.unpack24(raw),
+                    "numpy": lambda: wavio._unpack24_np(raw)})
+    check(pack["native"][1] == pack["numpy"][1] == raw and
+          wavs["native"][0].endswith(raw), "pack24 native and numpy disagree")
+    check(all(np.array_equal(unpack[k][1], ints) for k in unpack),
+          "unpack24 native and numpy disagree")
+    _, cpu_ints, _ = render_wav(fixtures, d, torch.device("cpu"), b"", wav)
+    # the first render of each State pays its captures: the medians are
+    # of the warm ones
+    return {
+        "library": lib, "project": "c4", "bd": 24, "ints": int(ints.size),
+        "launches": launches, **replays, "renders_each_way": NATIVE_RENDERS,
+        "bytes_identical": True,
+        **{f"{k}_{way}_ms": [r[k + "_ms"] for r in rs]
+           for way, rs in runs.items()
+           for k in ("fetch_write", "render_wall", "windows")},
+        **{f"{k}_{way}_warm_median_ms": statistics.median(
+            r[k + "_ms"] for r in rs[1:]) for way, rs in runs.items()
+           for k in ("fetch_write", "render_wall")},
+        "render_device_median_ms": statistics.median(device_s) * 1e3,
+        "pack24_ms": {k: v[0] for k, v in pack.items()},
+        "unpack24_ms": {k: v[0] for k, v in unpack.items()},
+        **compare("c4 24-bit", gpu, cpu_ints, 24, rate, 44100,
+                  2 * -(-st.cs * BL * 147 // 160))}
+
+
+def native_io(tmp: Path) -> dict:
+    """Phase 20, the reader and the sample load: phase 15's stream bytes
+    (two live streams, STREAM_SECONDS) decoded in 4096-byte reads and in
+    one blob, native against the numpy loop; the two malformed headers
+    the scanner rejects; a 24-bit 30 s sample loaded by SampleBank both
+    ways."""
+    from termdaw_tpu_torch import native
+    from termdaw_tpu_torch.banks.samplebank import (SampleBank,
+                                                    SampleLoadMethod)
+    from termdaw_tpu_torch.fileio import packets as pk
+    from termdaw_tpu_torch.fileio import wav as wavio
+
+    blob = b"".join(stream_packets(k, np.float32(k * STREAM_PERIOD_S + 0.3))
+                    for k in range(round(STREAM_SECONDS / STREAM_PERIOD_S)))
+
+    def decode(chunk: int) -> list:
+        dec = pk.PacketDecoder()
+        return [(p.kind, p.name, p.text,
+                 None if p.events is None else p.events.tobytes())
+                for i in range(0, len(blob), chunk)
+                for p in dec.feed(blob[i:i + chunk])]
+
+    def plain(chunk: int) -> list:
+        with native_off():
+            return decode(chunk)
+
+    n0 = native.calls["scan_frames"]
+    dec = turns({"native_reads": lambda: decode(4096),
+                 "native_blob": lambda: decode(len(blob)),
+                 "numpy_reads": lambda: plain(4096),
+                 "numpy_blob": lambda: plain(len(blob))})
+    scans = native.calls["scan_frames"] - n0
+    check(scans == 5 * (-(-len(blob) // 4096) + 1),
+          f"{scans} native scans for 5 x (4096-byte reads + one blob)")
+    want = dec["numpy_blob"][1]
+    check(len(want) > 0 and all(v[1] == want for v in dec.values()),
+          "the decoders' packets differ")
+    malformed = {}
+    for name, hdr in (("events_2^25", b"\x01\x01\x00a" +
+                       struct.pack("<I", 2 ** 25)),
+                      ("text_2^29", b"\x02" + struct.pack("<I", 2 ** 29))):
+        try:
+            pk.PacketDecoder().feed(hdr)
+            malformed[name] = None
+        except pk.PacketError as e:
+            malformed[name] = str(e)
+        check(malformed[name] == "malformed packet stream (code -2)",
+              f"the {name} header gave {malformed[name]!r}")
+
+    path = tmp / "sample24.wav"
+    rng = np.random.default_rng(20)
+    wavio.write_wav(path, rng.uniform(-0.9, 0.9, (LONG_SAMPLE_FRAMES, 2)),
+                    SR, bits=24)
+
+    def load():
+        sb = SampleBank(SR)
+        sb.add("s", str(path), SampleLoadMethod.STEREO)
+        return sb.get_sample(0)
+
+    def load_plain():
+        with native_off():
+            return load()
+
+    n0 = native.calls["unpack24"]
+    loads = turns({"native": load, "numpy": load_plain})
+    check(native.calls["unpack24"] == n0 + 5,
+          f"{native.calls['unpack24'] - n0} native unpacks for 5 loads")
+    a, b = loads["native"][1], loads["numpy"][1]
+    check(np.array_equal(a.l, b.l) and np.array_equal(a.r, b.r),
+          "the 24-bit sample loads differ")
+    return {"stream_bytes": len(blob), "packets": len(want),
+            "scan_frames_calls": scans,
+            "decode_ms": {k: v[0] for k, v in dec.items()},
+            "malformed": malformed,
+            "sample_frames": LONG_SAMPLE_FRAMES,
+            "sample_load_ms": {k: v[0] for k, v in loads.items()},
+            "calls": dict(native.calls)}
 
 
 def main() -> int:
@@ -997,6 +1232,11 @@ def main() -> int:
     libs = kernels.build_all(kernels.KERNELS)
     for name in kernels.KERNELS:
         getattr(kernels, f"{name}_lib")()
+    # the native host library (g++), built here so that no later phase
+    # pays its compile (phase 15's packet reader would); phase 20 checks it
+    from termdaw_tpu_torch import native
+
+    native.get_lib()
     # the exact lane rounds every multiply and add on its own: no fused
     # multiply-add may appear in its machine code
     sass = subprocess.run(
@@ -1712,6 +1952,11 @@ def main() -> int:
                         "session_wall_s": s["wall_s"],
                         "paused_at_deadline": s["paused_at_deadline"]}
                  for mode, s in (("graphs", sess), ("eager", esess))})
+
+        # 20. the native host library on the card's host
+        emit("native_render", card=card,
+             **native_render(fixtures, tmp, cuda, reset_counts))
+        emit("native_library", card=card, **native_io(tmp))
 
     print(card, flush=True)
     # launches: what each kernel's main-path render ran on the card (its

@@ -1,6 +1,14 @@
 """Carried over from termdaw_tpu/fileio/packets.py, so that the port imports
-nothing of termdaw_tpu; the decoder runs its numpy path only (the
-reference's native frame scanner is not used); the packets are the same.
+nothing of termdaw_tpu. With the native library loaded (native/, the
+port's copy of the reference's frame scanner), `PacketDecoder.feed`
+takes the scanner's spans, at most 4096 frames a feed, and raises
+`PacketError` where the scanner rejects the stream: an unknown kind
+(code -1) or a declared size over its guard (code -2: more than 2^24
+events, or more than 2^28 bytes of text), as the reference does. It
+decodes each span in place, where the reference copies the rest of the
+buffer for every frame. Without the library (TERMDAW_NATIVE=0) it runs
+the reference's numpy loop, which has no size guard; the packets of a
+well-formed stream are the same either way.
 
 First-party floww packet protocol for the stream workflow.
 
@@ -31,6 +39,8 @@ import struct
 from dataclasses import dataclass
 
 import numpy as np
+
+from .. import native
 
 KIND_EVENTS = 0x01
 KIND_TEXT = 0x02
@@ -73,6 +83,19 @@ class PacketDecoder:
     def feed(self, data: bytes) -> list[FlowwPacket]:
         self._buf += data
         out: list[FlowwPacket] = []
+        # native frame scanner finds all complete frame spans in one pass
+        try:
+            spans = native.scan_frames(self._buf)
+        except ValueError as e:
+            raise PacketError(str(e)) from None
+        if spans is not None:
+            end = 0
+            for off, length in spans:
+                pkt, end = self._try_decode(off)
+                assert pkt is not None and end == off + length
+                out.append(pkt)
+            del self._buf[:end]
+            return out
         while True:
             pkt, consumed = self._try_decode()
             if pkt is None:
@@ -81,33 +104,35 @@ class PacketDecoder:
             del self._buf[:consumed]
         return out
 
-    def _try_decode(self) -> tuple[FlowwPacket | None, int]:
+    def _try_decode(self, off: int = 0) -> tuple[FlowwPacket | None, int]:
+        """The frame starting at byte `off` of the buffer, decoded in place,
+        and the offset just past it; (None, 0) while it is incomplete."""
         buf = self._buf
-        if len(buf) < 1:
+        if len(buf) < off + 1:
             return None, 0
-        kind = buf[0]
+        kind = buf[off]
         if kind == KIND_EVENTS:
-            if len(buf) < 3:
+            if len(buf) < off + 3:
                 return None, 0
-            (name_len,) = struct.unpack_from("<H", buf, 1)
-            pos = 3 + name_len
+            (name_len,) = struct.unpack_from("<H", buf, off + 1)
+            pos = off + 3 + name_len
             if len(buf) < pos + 4:
                 return None, 0
-            name = bytes(buf[3:pos]).decode("utf-8")
+            name = bytes(buf[off + 3:pos]).decode("utf-8")
             (n,) = struct.unpack_from("<I", buf, pos)
             pos += 4
             nbytes = n * 16
             if len(buf) < pos + nbytes:
                 return None, 0
-            ev = np.frombuffer(bytes(buf[pos : pos + nbytes]), dtype="<f4")
+            ev = np.frombuffer(buf, dtype="<f4", count=4 * n, offset=pos)
             ev = ev.reshape(n, 4).astype(np.float32)
             return FlowwPacket(KIND_EVENTS, name=name, events=ev), pos + nbytes
         if kind == KIND_TEXT:
-            if len(buf) < 5:
+            if len(buf) < off + 5:
                 return None, 0
-            (tlen,) = struct.unpack_from("<I", buf, 1)
-            if len(buf) < 5 + tlen:
+            (tlen,) = struct.unpack_from("<I", buf, off + 1)
+            if len(buf) < off + 5 + tlen:
                 return None, 0
-            text = bytes(buf[5 : 5 + tlen]).decode("utf-8")
-            return FlowwPacket(KIND_TEXT, text=text), 5 + tlen
+            text = bytes(buf[off + 5:off + 5 + tlen]).decode("utf-8")
+            return FlowwPacket(KIND_TEXT, text=text), off + 5 + tlen
         raise PacketError(f"unknown packet kind {kind:#x}")

@@ -1,7 +1,5 @@
 """Carried over from termdaw_tpu/fileio/wav.py, so that the port imports
-nothing of termdaw_tpu; the 24-bit pack and unpack run on their numpy
-paths only (the reference's native library is not used); the bytes are
-the same.
+nothing of termdaw_tpu.
 
 First-party WAV (RIFF) codec.
 
@@ -21,7 +19,10 @@ Semantics notes vs the reference:
   (sample.rs:268-274); its subsequent peak-normalization makes the scale moot.
   A `scale=True` option is provided for general use.
 
-The 24-bit pack/unpack is numpy.
+A C++ fast path (termdaw_tpu_torch/native/wavio.cpp, the port's copy of
+the reference's) packs and unpacks 24-bit samples; this module falls back
+to the numpy bodies (`_unpack24_np`, `_pack24_np`, the same bytes) when
+the native library is not loaded (TERMDAW_NATIVE=0, no compiler).
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
+
+from .. import native
 
 WAVE_FORMAT_PCM = 0x0001
 WAVE_FORMAT_IEEE_FLOAT = 0x0003
@@ -51,6 +54,14 @@ class WavError(ValueError):
 
 def _unpack24(raw: bytes) -> np.ndarray:
     """Unpack little-endian signed 24-bit PCM into int32."""
+    nat = native.unpack24(raw)
+    if nat is not None:
+        return nat
+    return _unpack24_np(raw)
+
+
+def _unpack24_np(raw: bytes) -> np.ndarray:
+    """_unpack24's numpy body."""
     b = np.frombuffer(raw, dtype=np.uint8)
     n = len(b) // 3
     b = b[: n * 3].reshape(n, 3)
@@ -66,6 +77,14 @@ def _unpack24(raw: bytes) -> np.ndarray:
 
 def _pack24(vals: np.ndarray) -> bytes:
     """Pack int32 (already clipped to 24-bit range) into little-endian 24-bit."""
+    nat = native.pack24(np.asarray(vals, np.int32))
+    if nat is not None:
+        return nat
+    return _pack24_np(vals)
+
+
+def _pack24_np(vals: np.ndarray) -> bytes:
+    """_pack24's numpy body."""
     v = vals.astype(np.int64) & 0xFFFFFF
     out = np.empty((len(v), 3), dtype=np.uint8)
     out[:, 0] = v & 0xFF

@@ -89,6 +89,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import itertools
 import os
 import time
@@ -177,10 +178,15 @@ class _WindowProgram:
         self.pool_bytes = 0  # what its capture added to the graph's pool
         self.kernels: dict[str, int] = {}  # kernel launches captured
 
+        ints, floats, t0 = self.ints, self.floats, self.t0
+
+        # no reference back to the program: a dropped program (and its
+        # CUDAGraph) is freed at once, not by the cyclic collector at
+        # some later moment, which could be inside another capture
         def run(write_state: bool = True) -> torch.Tensor:
-            bakes = _unpack_bakes(self.ints, self.floats, layout)
+            bakes = _unpack_bakes(ints, floats, layout)
             with filters.exact_biquad_scope(cg.exact_biquad):
-                return cg._program(bakes, self.t0, nb, is_scan,
+                return cg._program(bakes, t0, nb, is_scan,
                                    write_state=write_state)
 
         self._run = run
@@ -208,24 +214,33 @@ class _WindowProgram:
             reserved = torch.cuda.memory_reserved(dev)
             counts = _kernel_counts()
             graph = torch.cuda.CUDAGraph()
+            # a CUDAGraph freed while a stream captures destroys its
+            # executable, which voids the capture: no collection of
+            # garbage (from any thread) may run until the capture ends
+            collector_on = gc.isenabled()
+            gc.disable()
             t = time.perf_counter()
-            graph.capture_begin(pool=cg._graph_pool)
             try:
-                out = self._run()
-            except BaseException as e:
+                graph.capture_begin(pool=cg._graph_pool)
                 try:
-                    graph.capture_end()
-                except Exception:
-                    pass  # the capture is void; its first error is raised
-                if not isinstance(e, Exception):
-                    raise
-                vi, kind = cg._vertex_at
-                where = (f"vertex {cg.graph.names[vi]!r} ({kind})"
-                         if vi is not None else kind)
-                raise RuntimeError(
-                    f"capturing the window program failed in {where}: "
-                    f"{e}") from e
-            graph.capture_end()
+                    out = self._run()
+                except BaseException as e:
+                    try:
+                        graph.capture_end()
+                    except Exception:
+                        pass  # the capture is void; its first error is raised
+                    if not isinstance(e, Exception):
+                        raise
+                    vi, kind = cg._vertex_at
+                    where = (f"vertex {cg.graph.names[vi]!r} ({kind})"
+                             if vi is not None else kind)
+                    raise RuntimeError(
+                        f"capturing the window program failed in {where}: "
+                        f"{e}") from e
+                graph.capture_end()
+            finally:
+                if collector_on:
+                    gc.enable()
             self.capture_ms = (time.perf_counter() - t) * 1e3
         cur.wait_stream(stream)
         after = _kernel_counts()

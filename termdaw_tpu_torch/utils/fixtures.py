@@ -315,11 +315,15 @@ def load_state(d: Path, device, packets: bytes = b"", mesh=None):
 
 
 def read_wav_ints(path) -> tuple[np.ndarray, int]:
-    """Interleaved int samples and the rate of a 16/32-bit PCM WAV, read
+    """Interleaved int samples and the rate of a 16/24/32-bit PCM WAV, read
     with the standard library (independent of the writer)."""
     with wave.open(str(path), "rb") as w:
         width, rate = w.getsampwidth(), w.getframerate()
         raw = w.readframes(w.getnframes())
+    if width == 3:
+        b = np.frombuffer(raw, np.uint8).reshape(-1, 3).astype(np.int64)
+        v = b[:, 0] | b[:, 1] << 8 | b[:, 2] << 16
+        return np.where(v >= 1 << 23, v - (1 << 24), v), rate
     if width not in (2, 4):
         raise ValueError(f"{path}: {8 * width}-bit WAV not supported here")
     return np.frombuffer(raw, f"<i{width}").astype(np.int64), rate

@@ -22,6 +22,7 @@ import sys
 import threading
 import time
 
+from .. import native
 from ..engine.player import Player
 from ..fileio.packets import PacketDecoder, PacketError
 from ..utils.term import DEFAULT, RED
@@ -68,6 +69,10 @@ def run_stream_workflow(
             pass
         feed_queue.put(("eof", None))
 
+    # load the native frame scanner before the session starts: its
+    # first-use build (a compile of about a second) would otherwise hold
+    # up the first packets while the Player is already playing
+    native.get_lib()
     threading.Thread(target=reader, daemon=True).start()
 
     player = Player(state, sink, proj_sr, buffer_len)

@@ -1,7 +1,8 @@
 """The port on a CUDA card: the voice-mix, affine-scan, max-decay,
 complex-scan and exact-biquad kernels against their plain versions, the
-effects, small renders (the exact lane's and a chain-served one among
-them) and playback on the card against the port's CPU path. This file
+effects, small renders (the exact lane's, a chain-served one and a 24-bit
+one with the native host library on and off among them) and playback on
+the card against the port's CPU path. This file
 imports no JAX, so it also runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -9,14 +10,16 @@ imports no JAX, so it also runs where only the port is installed:
 Without a card every test skips."""
 
 import functools
+import gc
 
 import numpy as np
 import pytest
 import torch
 
-from termdaw_tpu_torch import kernels
+from termdaw_tpu_torch import kernels, native
 from termdaw_tpu_torch.engine.player import Player
 from termdaw_tpu_torch.engine.sink import Sink
+from termdaw_tpu_torch.fileio.wav import read_wav
 from termdaw_tpu_torch.ops import filters, fx, scan, voices
 from termdaw_tpu_torch.parallel.mesh import gather
 from termdaw_tpu_torch.tools import shard_render
@@ -471,6 +474,29 @@ def test_small_c4_render_on_card_matches_cpu(cuda, tmp_path):
     assert np.abs(got - want).max() <= 1
 
 
+def test_small_c4_24_bit_render_on_card_native_on_and_off(cuda, tmp_path,
+                                                           monkeypatch):
+    """The 24-bit WAV of a c4 cut rendered on the card is the same bytes
+    with the native library (its pack24 counted) and without it."""
+    write_c4_project(tmp_path, 2.0, 8000, 256, render_sr=8000, bd=24)
+    assert native.get_lib() is not None, native.load_error
+    n0 = native.calls["pack24"]
+    load_state(tmp_path, cuda).render()
+    on = (tmp_path / "outp.wav").read_bytes()
+    assert native.calls["pack24"] > n0
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setenv("TERMDAW_NATIVE", "0")
+    (tmp_path / "outp.wav").unlink()
+    n1 = native.calls["pack24"]
+    load_state(tmp_path, cuda).render()
+    assert native.calls["pack24"] == n1
+    assert (tmp_path / "outp.wav").read_bytes() == on
+    data, spec = read_wav(tmp_path / "outp.wav")
+    assert spec.bits_per_sample == 24 and data.shape[0] >= 16000
+    assert np.abs(data).max() > 2 ** 22
+
+
 def _biquad_args(cuda, T, C, seed):
     """The c4 eq3's stage coefficients (lowpass and highpass at 180 Hz and
     4 kHz, 48 kHz) over C channels, a seeded input and state."""
@@ -706,6 +732,36 @@ def test_capture_with_a_pageable_upload_raises_on_card(cuda, tmp_path,
 
 _ENQUEUES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
              "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def test_a_dropped_program_is_not_freed_inside_a_capture_on_card(
+        cuda, tmp_path):
+    """A dropped program waits in a reference cycle for the collector; a
+    collection inside a later capture must not free its CUDAGraph there
+    (that destroys an executable mid-capture and voids the capture), so
+    the capture collects before it begins."""
+    write_c1_project(tmp_path, 2.0, 8000, 256, render_sr=4000)
+    st = load_state(tmp_path, cuda)
+    st.render()
+    assert st.compiled.captures > 0
+    gc.disable()
+    try:
+        st.compiled.release_chains()  # its programs: cyclic garbage now
+        st2 = load_state(tmp_path, cuda)
+        program = st2.compiled._program
+
+        def collecting(*args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():
+                gc.collect()
+            return program(*args, **kwargs)
+
+        st2.compiled._program = collecting
+        st2.render()
+    finally:
+        gc.enable()
+    assert st2.compiled.captures > 0
+    assert st2.compiled.replays == st2.compiled.served_windows + \
+        st2.compiled.live_bakes
 
 
 def test_replayed_c4_window_host_launches_on_card(cuda, tmp_path):

@@ -233,11 +233,18 @@ write_c2_project({str(tmp_path / 'c2')!r}, 1.0, 8000, 256)
 load_state({str(tmp_path / 'c2')!r}, torch.device('cpu')).render()
 write_c3_project({str(tmp_path / 'c3')!r}, 2.0, 8000, 256)
 load_state({str(tmp_path / 'c3')!r}, torch.device('cpu')).render()
-write_c4_project({str(tmp_path / 'c4')!r}, 1.0, 8000, 256, render_sr=8000)
+write_c4_project({str(tmp_path / 'c4')!r}, 1.0, 8000, 256, render_sr=8000,
+                 bd=24)
 load_state({str(tmp_path / 'c4')!r}, torch.device('cpu')).render()
+from termdaw_tpu_torch import native
+from termdaw_tpu_torch.fileio.packets import PacketDecoder
+assert len(PacketDecoder().feed(packets)) > 0
+assert native.calls['pack24'] > 0 and native.calls['scan_frames'] > 0, (
+    native.calls, native.load_error)
 import termdaw_tpu_torch.cli
 import termdaw_tpu_torch.workflows.ui
 assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)
+assert 'termdaw_tpu.native' not in sys.modules
 ref = sorted(m for m in sys.modules
              if m == 'termdaw_tpu' or m.startswith('termdaw_tpu.'))
 assert not ref, ref

@@ -132,6 +132,24 @@ def test_refresh_drops_the_replaced_graphs_programs(tmp_path):
     assert len(st.compiled.programs()) == st.compiled.captures == 1
 
 
+def test_a_dropped_program_is_freed_without_the_collector(tmp_path):
+    """A program holds no reference to itself: dropped from the cache (at
+    a refresh, or evicted) it is freed at once, never by a later cyclic
+    collection, which on the card could run inside another program's
+    capture and void it (a CUDAGraph freed mid-capture)."""
+    write_c1_project(tmp_path, 1.0, SR, BL, render_sr=4000)
+    st = load_state(tmp_path, CPU)
+    st.render()
+    refs = [weakref.ref(p) for p in st.compiled.programs()]
+    assert refs
+    gc.disable()
+    try:
+        st.compiled.release_chains()
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
 @pytest.mark.parametrize("env,cap", [("", 128), ("3", 8), ("200", 200)])
 def test_program_cache_env_read_the_reference_way(env, cap):
     """TERMDAW_PROGRAM_CACHE: max(8, int(env or 128)), read at import."""
