@@ -124,11 +124,14 @@ phase 12 gates those of a replayed c4 render against its device rows.
    (the voice mix on c5), each render is 4 sharded windows (3 x 512 +
    336 blocks) and 1 window of 3 blocks every rank renders alone, rank
    0's WAV is within 2/32768 of full scale of the single-rank card
-   render (phases 5 and 10), and a failure in any rank fails the phase.
-   Printed: the median of 3 sharded walls (rank 0's render_device) beside
-   the single-rank medians served from a chain and live
-   (TERMDAW_PREBAKE=0), and the host seconds rank 0 spent in collectives.
-   Sharded windows run the eager program, as in the reference;
+   render (phases 5 and 10), each rank's sharded program entries are
+   captured over NCCL and eager over gloo (a gloo collective cannot be
+   captured), and a failure in any rank fails the phase. Printed: which
+   the entries are, the median of 3 sharded walls (rank 0's
+   render_device) through the program cache and with every sharded
+   window eager (`render_window_sharded(..., eager=True)`), in turns,
+   beside the single-rank medians served from a chain and live
+   (TERMDAW_PREBAKE=0), and the host seconds rank 0 spent in collectives;
 19. the program cache: c5, c1, c2, c3 and c4 each loaded and rendered
    four times, eager (`eager=True`), from graphs, from graphs,
    eager, in one process: the WAVs bit-identical, every graph window a
@@ -156,7 +159,21 @@ phase 12 gates those of a replayed c4 render against its device rows.
    and numpy, the same packets; the two headers whose declared size the
    scanner rejects (2^25 events, 2^29 bytes of text) raising PacketError;
    a 30 s 24-bit sample loaded by SampleBank both ways (unpacks counted),
-   the same samples.
+   the same samples;
+21. sharded windows from captured graphs: a 1-rank NCCL world on cuda:0
+   (`tools/shard_render.replay_check`; NCCL refuses two ranks on one
+   card), where c4 and c5 at the full shape render the windows of a
+   4-rank render (3 x 512 + 336 blocks, from t = 0) through
+   `render_window_sharded`, one State through the program cache and one
+   eager, in lockstep, then 5 more passes each way in turns. Gated: the
+   audio and the numeric state bit-identical eager against replayed,
+   every window a replay, every program captured with all its collectives
+   (as many as the eager program issues a window) and, on c4, all four
+   default-path kernels (c5: the voice mix), each launched in the first
+   pass (wrapper counts set to 0 just before it). Printed: the window
+   walls (medians eager and
+   replayed), the host's enqueue rows a window each way, each program's
+   warm-up and capture ms, pool MB and captured collectives.
 
 Then the card line, the kernels line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -720,12 +737,6 @@ def eager_windows(cg, on: bool) -> None:
         cg.__dict__.pop("render_window", None)
 
 
-# the runtime calls that enqueue work on the card, as torch.profiler's
-# CPU-side rows name them
-ENQUEUES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
-            "cudaMemcpyAsync", "cudaMemsetAsync")
-
-
 def host_launches(st) -> dict:
     """One render's windows (render_device's loop, without its resample
     and quantize) under torch.profiler: the host's enqueue rows (kernel
@@ -733,6 +744,7 @@ def host_launches(st) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from termdaw_tpu_torch.engine.state import render_chunk_blocks
+    from termdaw_tpu_torch.tools.shard_render import ENQUEUES
 
     global empty_traces
     cg = st.compiled
@@ -1846,9 +1858,11 @@ def main() -> int:
         emit("sharded_scans", card=card, cards=count,
              transport=transport(scans["shared_card"], scans["backend"]),
              **scans)
+        sharded_projects = []
         for cfg, single_ints, bd in (("c4", gpu4, 16), ("c5", gpu5, 32)):
             d = tmp / f"{cfg}_sharded"
             pk = shard_render.write_project(cfg, d)
+            sharded_projects.append((cfg, str(d), pk))
             single = shard_render.single_walls(d, pk, reps=3)
             res = shard_render.sharded_run(
                 d, pk, shard_render.PROJECTS[cfg], SHARD_RANKS, reps=3)
@@ -1957,6 +1971,17 @@ def main() -> int:
         emit("native_render", card=card,
              **native_render(fixtures, tmp, cuda, reset_counts))
         emit("native_library", card=card, **native_io(tmp))
+
+        # 21. sharded windows from captured graphs: a 1-rank NCCL world
+        t21 = time.perf_counter()
+        try:
+            replays = shard_render.replay_check(sharded_projects, need={
+                "c4": ("voice_mix", "affine_scan", "max_decay_scan",
+                       "complex_scan"), "c5": ("voice_mix",)})
+        except RuntimeError as e:
+            check(False, str(e))
+        emit("sharded_replays", card=card, transport="nccl, 1 rank on cuda:0",
+             seconds=time.perf_counter() - t21, **replays)
 
     print(card, flush=True)
     # launches: what each kernel's main-path render ran on the card (its

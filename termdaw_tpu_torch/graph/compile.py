@@ -37,10 +37,12 @@ instead of as a jitted XLA program:
   1e-4 the input passes and the `.fx` state is left as it was, without
   running the effect (the reference's `jnp.where` leaf by leaf gives the
   same values);
-* the window-program cache (reference compile.py:124-175, 1584-1604): a
-  bounded LRU `_PROGRAM_CACHE` of `_WindowProgram`s, capped by
-  TERMDAW_PROGRAM_CACHE (max(8, int(env or 128)), read at import), keyed
-  by (graph serial, nb, is_scan, bake layout, time-table length). On
+* the window-program cache (reference compile.py:124-175, 1197-1225,
+  1584-1604): a bounded LRU `_PROGRAM_CACHE` of `_WindowProgram`s, capped
+  by TERMDAW_PROGRAM_CACHE (max(8, int(env or 128)), read at import),
+  keyed by (graph serial, nb, is_scan, bake layout, time-table length),
+  and a sharded window's by (graph serial, "sharded", nb_total, is_scan,
+  world size, this rank's bake layout, time-table length). On
   CUDA an entry is one captured `torch.cuda.CUDAGraph` of `_program` with
   its static inputs (the bake buffers at the layout's sizes and `t0`) and
   its static output: every single-device window, live or served, copies
@@ -54,8 +56,12 @@ instead of as a jitted XLA program:
   CompiledGraph (`release_chains`, called at refresh, drops them; a
   capture costs milliseconds where an XLA compile costs seconds), and a
   longer time table drops the entries keyed to the shorter one.
-  `render_window(..., eager=True)` runs the eager program directly, for
-  measurement; sharded windows always do, as in the reference;
+  A sharded entry over NCCL captures the window's collectives with its
+  kernels, as the reference caches its jitted shard_map programs; over
+  gloo (the CPU, or ranks sharing a card) it runs the eager program over
+  its buffers, since a gloo collective is a host call no graph can hold.
+  `render_window(..., eager=True)` and `render_window_sharded(...,
+  eager=True)` run the eager program directly, for measurement;
 * TERMDAW_EXACT_BIQUAD=1 is read once at build, as the reference does,
   and every window renders (and captures) under
   `filters.exact_biquad_scope` of that value, so the biquads run the
@@ -70,7 +76,8 @@ instead of as a jitted XLA program:
   its block range split across the ranks of a mesh (parallel/mesh.py):
   every rank bakes the whole window on its host, live, slices the
   row-sharded bake fields (`_ROW_SHARDED`, compile.py:1175-1178) to its
-  own block rows, uploads only those and runs `_program` on them at its
+  own block rows, copies only those into its cached program's inputs and
+  runs `_program` on them at its
   global frame offset t0 + rank*T (`frames`, `time2d`, the SampleLoop
   slice, the SampleMulti begins); the Normalize, the band-pass and the
   effects take the mesh, so the numeric state after the window is the
@@ -161,17 +168,30 @@ class _WindowProgram:
     its static output; on the CPU the
     eager program over the same buffers. Calling it runs the window with
     what was written into the inputs; a replay's audio is cloned out of
-    the static output, which the next replay overwrites."""
+    the static output, which the next replay overwrites.
+
+    Under a mesh it is this rank's part of a sharded window, and its
+    collectives are part of the program: over NCCL they are captured with
+    the kernels (the warm-up runs each once first, so NCCL's communicator
+    is set up outside the capture). A gloo collective is a host call that
+    no CUDA graph can hold, so over gloo the entry runs the eager program
+    over its buffers, as on the CPU; `captured` says which, decided here
+    from the backend. `collectives` is what one run issues: a replay adds
+    it to the mesh's `collective_calls`."""
 
     def __init__(self, cg: "CompiledGraph", nb: int, is_scan: bool,
-                 layout: tuple) -> None:
+                 layout: tuple, mesh=None) -> None:
         dev = cg.device
         n_i, n_f = _layout_sizes(layout)
         self.cg = cg
+        self.mesh = mesh
+        self.captured = dev.type == "cuda" and (
+            mesh is None or mesh.backend == "nccl")
         self.ints = torch.zeros(n_i, dtype=torch.int32, device=dev)
         self.floats = torch.zeros(n_f, dtype=torch.float32, device=dev)
         self.t0 = torch.zeros((), dtype=torch.int64, device=dev)
         self.replays = 0
+        self.collectives = 0
         self.graph: torch.cuda.CUDAGraph | None = None
         self.out: torch.Tensor | None = None
         self.warmup_ms = self.capture_ms = 0.0
@@ -186,16 +206,19 @@ class _WindowProgram:
         def run(write_state: bool = True) -> torch.Tensor:
             bakes = _unpack_bakes(ints, floats, layout)
             with filters.exact_biquad_scope(cg.exact_biquad):
-                return cg._program(bakes, t0, nb, is_scan,
+                return cg._program(bakes, t0, nb, is_scan, mesh,
                                    write_state=write_state)
 
         self._run = run
 
     def _capture(self, dev: torch.device) -> None:
         """A warm-up of the program on the inputs written for the first
-        window that leaves the state as it was (lazy initialisation
-        happens outside the capture), then the capture. A failure raises
-        with the vertex the program was at."""
+        window that leaves the state as it was (lazy initialisation, NCCL's
+        communicator included, happens outside the capture), then the
+        capture. A failure raises with the vertex the program was at. The
+        warm-up's collectives ran and stay counted; the capture's did not
+        run: they are taken off the mesh's counts and kept as
+        `collectives`."""
         from .. import kernels
 
         kernels.load_all(dev)  # nothing may be built or loaded in capture
@@ -213,6 +236,9 @@ class _WindowProgram:
             self.warmup_ms = (time.perf_counter() - t) * 1e3
             reserved = torch.cuda.memory_reserved(dev)
             counts = _kernel_counts()
+            mesh = self.mesh
+            if mesh is not None:
+                calls, calls_s = mesh.collective_calls, mesh.collective_s
             graph = torch.cuda.CUDAGraph()
             # a CUDAGraph freed while a stream captures destroys its
             # executable, which voids the capture: no collection of
@@ -242,6 +268,9 @@ class _WindowProgram:
                 if collector_on:
                     gc.enable()
             self.capture_ms = (time.perf_counter() - t) * 1e3
+            if mesh is not None:
+                self.collectives = mesh.collective_calls - calls
+                mesh.collective_calls, mesh.collective_s = calls, calls_s
         cur.wait_stream(stream)
         after = _kernel_counts()
         self.kernels = {k: after[k] - n for k, n in counts.items()
@@ -251,15 +280,21 @@ class _WindowProgram:
         self.graph, self.out = graph, out
 
     def __call__(self) -> torch.Tensor:
-        dev = self.ints.device
-        if dev.type != "cuda":
-            self.replays += 1
-            return self._run()
-        if self.graph is None:
-            self._capture(dev)
+        mesh = self.mesh
+        if not self.captured:
+            calls = mesh.collective_calls if mesh is not None else 0
+            out = self._run()
+            if mesh is not None:
+                self.collectives = mesh.collective_calls - calls
+        else:
+            if self.graph is None:
+                self._capture(self.ints.device)
+            self.graph.replay()
+            if mesh is not None:
+                mesh.collective_calls += self.collectives
+            out = self.out.clone()
         self.replays += 1
-        self.graph.replay()
-        return self.out.clone()
+        return out
 
 
 def _layout_sizes(layout: tuple) -> tuple[int, int]:
@@ -774,6 +809,7 @@ class CompiledGraph:
             self._ttab = torch.from_numpy(
                 time_table(self.sr, n_frames)
             ).to(self.device)
+            # single-device and sharded keys both end in the length
             self._drop_programs(lambda key: key[-1] != 0)
         return self._ttab
 
@@ -1238,17 +1274,10 @@ class CompiledGraph:
         ttab_len = int(self._time_table(t0 + nb * self.bl).shape[0]) \
             if self._uses_time else 0
         if eager:
-            with filters.exact_biquad_scope(self.exact_biquad):
-                audio = self._program(_unpack_bakes(
-                    ints.to(self.device), floats.to(self.device), layout),
-                    t0, nb, is_scan)
+            audio = self._run_eager(ints, floats, layout, t0, nb, is_scan)
         else:
-            fn = self._get_fn(nb, is_scan, layout, ttab_len)
-            fn.ints.copy_(ints)
-            fn.floats.copy_(floats)
-            fn.t0.fill_(t0)
-            audio = fn()
-            self.replays += 1
+            audio = self._run_cached(
+                self._get_fn(nb, is_scan, layout, ttab_len), ints, floats, t0)
         if served is None:
             self._apply_carries(new_carries)
         else:
@@ -1261,14 +1290,20 @@ class CompiledGraph:
         return audio
 
     def render_window_sharded(self, fb: FlowwBank, nb_total: int, mesh,
-                              is_scan: bool = False) -> torch.Tensor:
+                              is_scan: bool = False,
+                              eager: bool = False) -> torch.Tensor:
         """Render `nb_total` blocks from the current graph time with the
         block range split across the ranks of `mesh` (nb_total a multiple
         of the world size): this rank renders its nb_total/n blocks and
         returns their audio [nb_total/n*bl, 2]. Every rank bakes the whole
-        window live (the same carries follow on every rank), uploads its
-        own rows of the row-sharded fields and all of the others. Advances
-        graph time and all carried state; breaks every chain's lineage."""
+        window live (the same carries follow on every rank) and copies its
+        own rows of the row-sharded fields and all of the others into the
+        inputs of the program `_get_fn` finds for this rank's layout, which
+        runs it (reference compile.py:1197-1225; every rank reaches a key's
+        first window at the same window, so the ranks capture in
+        lockstep). `eager` runs the eager program on them instead, outside
+        the cache. Advances graph time and all carried state; breaks every
+        chain's lineage."""
         n = mesh.size
         if nb_total % n != 0:
             raise ValueError(f"render_window_sharded: nb_total {nb_total} "
@@ -1281,12 +1316,18 @@ class CompiledGraph:
         mine = {vkey: {f: (a[lo:hi] if f in _ROW_SHARDED else a)
                        for f, a in tbl.items()}
                 for vkey, tbl in bakes.items()}
-        ints, floats, layout = self._upload(mine)
+        ints, floats, layout = _pack_bakes(mine)
+        ints, floats = torch.from_numpy(ints), torch.from_numpy(floats)
         self._pack_fx()
-        if self._uses_time:
-            self._time_table(t0 + nb_total * self.bl)
-        audio = self._program(_unpack_bakes(ints, floats, layout), t0, nb,
-                              is_scan, mesh)
+        ttab_len = int(self._time_table(t0 + nb_total * self.bl).shape[0]) \
+            if self._uses_time else 0
+        if eager:
+            audio = self._run_eager(ints, floats, layout, t0, nb, is_scan,
+                                    mesh)
+        else:
+            audio = self._run_cached(
+                self._get_fn(nb, is_scan, layout, ttab_len, mesh), ints,
+                floats, t0)
         self._apply_carries(new_carries)
         self.t = t0 + nb_total * self.bl
         self.graph.t = self.t
@@ -1585,19 +1626,48 @@ class CompiledGraph:
         return {"begins": begins, "vel": vel, "member": member}
 
     # -- the window program ---------------------------------------------------
-    def _get_fn(self, nb: int, is_scan: bool, layout: tuple,
-                ttab_len: int) -> _WindowProgram:
+    def _get_fn(self, nb: int, is_scan: bool, layout: tuple, ttab_len: int,
+                mesh=None) -> _WindowProgram:
         """The cached program of this window shape, made (captured on
-        CUDA) on first use (reference compile.py:1584-1604)."""
+        CUDA) on first use (reference compile.py:1584-1604); under a mesh,
+        this rank's program of a sharded window of nb * mesh.size blocks,
+        keyed by the layout of its own rows (reference compile.py:1207).
+        Every key ends in the time table's length (`_time_table`'s drop
+        reads key[-1])."""
         # the effect-parameter layout and the biquad lane, in the
         # reference's key, are fixed per graph here
-        key = (self.serial, nb, is_scan, layout, ttab_len)
+        if mesh is None:
+            key = (self.serial, nb, is_scan, layout, ttab_len)
+        else:
+            key = (self.serial, "sharded", nb * mesh.size, is_scan,
+                   mesh.size, layout, ttab_len)
         fn = _cache_get(key)
         if fn is None:
-            fn = _WindowProgram(self, nb, is_scan, layout)
+            fn = _WindowProgram(self, nb, is_scan, layout, mesh)
             _cache_put(key, fn)
             self.captures += 1
         return fn
+
+    def _run_eager(self, ints: torch.Tensor, floats: torch.Tensor, layout,
+                   t0: int, nb: int, is_scan: bool,
+                   mesh=None) -> torch.Tensor:
+        """The eager program on a window's bake buffers, outside the
+        cache."""
+        with filters.exact_biquad_scope(self.exact_biquad):
+            return self._program(_unpack_bakes(
+                ints.to(self.device), floats.to(self.device), layout), t0,
+                nb, is_scan, mesh)
+
+    def _run_cached(self, fn: _WindowProgram, ints: torch.Tensor,
+                    floats: torch.Tensor, t0: int) -> torch.Tensor:
+        """Copy a window's bake buffers and first frame into a program's
+        inputs and run it."""
+        fn.ints.copy_(ints)
+        fn.floats.copy_(floats)
+        fn.t0.fill_(t0)
+        audio = fn()
+        self.replays += 1
+        return audio
 
     def _fused_mix(self, consumer: int, bakes, nb: int) -> torch.Tensor:
         """One voice-mix call for a whole SampleMulti group: per-vertex

@@ -19,10 +19,13 @@ device:
   with a card for each rank (`cuda:<local rank>`); gloo on the CPU; gloo
   with every rank on `cuda:0` only when the caller asks for the shared
   card (`share_device=True`; NCCL refuses two ranks on one card).
-* The render's collectives are the list form of `dist.all_gather`
-  (`all_gather`, stacked to [n, *shape]), `dist.all_reduce` with MAX
-  (`pmax`) and, for the audio only rank 0 writes, `dist.gather` to rank 0
-  (`gather`), which gloo and NCCL all carry.
+* The render's collectives are `all_gather` ([n, *shape]: over NCCL
+  `dist.all_gather_into_tensor` into one tensor, the form a CUDA graph
+  can hold; over gloo the list form of `dist.all_gather`, stacked),
+  `dist.all_reduce` with MAX (`pmax`) and, for the audio only rank 0
+  writes, `dist.gather` to rank 0 (`gather`, after the window program).
+  A sharded window's program captures its `all_gather`s and `pmax`es
+  over NCCL (graph/compile.py `_WindowProgram`).
 * `sharded_render` (mesh.py:24-35) renders blocks from the current time
   as one sharded window, after `seed_caps(..., prebake=False)`: a sharded
   window bakes live, so a stored chain could never be served.
@@ -52,8 +55,10 @@ class Mesh:
     size: int
     device: torch.device
     backend: str
-    # collectives run through all_gather / pmax / gather, and the host
-    # seconds they took (with NCCL the host only enqueues them)
+    # collectives run through all_gather / pmax / gather (a captured
+    # program's replay adds those it captured), and the host seconds of
+    # the ones issued from the host (with NCCL the host only enqueues
+    # them; a replay's are not in it)
     collective_calls: int = 0
     collective_s: float = 0.0
 
@@ -190,9 +195,13 @@ def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     rank."""
     t0 = time.perf_counter()
     x = x.contiguous()
-    out = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(out, x)
-    res = torch.stack(out)
+    if mesh.backend == "nccl":
+        res = x.new_empty((mesh.size, *x.shape))
+        dist.all_gather_into_tensor(res, x)
+    else:
+        out = [torch.empty_like(x) for _ in range(mesh.size)]
+        dist.all_gather(out, x)
+        res = torch.stack(out)
     mesh.collective_calls += 1
     mesh.collective_s += time.perf_counter() - t0
     return res

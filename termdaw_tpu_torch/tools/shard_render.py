@@ -11,18 +11,33 @@ their full shape (40 s, 48 kHz, 1024-frame blocks): each rendered on
 cuda:0 alone (the live-bake median with TERMDAW_PREBAKE=0 and the
 chain-served median), then on --ranks ranks (parallel/mesh.launch).
 Ranks take NCCL with a card for each where the machine has that many
-cards, else gloo with every rank on cuda:0 (the lines name it). Each
-rank returns its kernel launch counts of the first render, its sharded
-and single-device windows, and the walls and collective time of `reps`
-more renders; rank 0 also returns the WAV, which must be within 2/32768
-of full scale of the single-rank one. One JSON line for the scans and
-one a project; exits 1 if a check fails. chip_smoke.py's phase 18 runs
-`scan_check` and `sharded_run`.
+cards, else gloo with every rank on cuda:0 (the lines name it). Over
+NCCL each sharded window replays its rank's captured program (the
+collectives inside); over gloo the program's entries run eager (a gloo
+collective cannot be captured). Each rank returns its kernel launch
+counts of the first render, its sharded and single-device windows, its
+sharded program entries (`sharded_programs`: captured or eager), and the
+walls and collective time of `reps` more renders each way, through the
+program cache and with every sharded window eager
+(`render_window_sharded(..., eager=True)`), in turns; rank 0 also
+returns the WAV, which must be within 2/32768 of full scale of the
+single-rank one. One JSON line for the scans and one a project; exits 1
+if a check fails. chip_smoke.py's phase 18 runs `scan_check` and
+`sharded_run`.
+
+`replay_check` (chip_smoke.py's phase 21) runs a 1-rank NCCL world on
+one card, where a sharded window's program is captured with real NCCL
+collectives inside (NCCL refuses two ranks on one card, and gloo's
+cannot be captured): two States render the same sharded windows, one
+through the program cache and one eager, and the audio and the numeric
+state must be bit-identical, every window a replay and every program
+holding all its collectives.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -35,6 +50,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..graph import compile as gcompile
 from ..ops import filters, fx, scan, voices
 from ..parallel import launch
 from ..utils import fixtures
@@ -259,11 +275,41 @@ def _counts() -> dict[str, int]:
             "complex_scan": scan.complex_launches}
 
 
-def render_rank(mesh, d: str, packets: bytes, wav: str, reps: int) -> dict:
-    """One rank: the project's first render (its kernel launches), then
-    `reps` timed render_device calls after a warm-up."""
+def _reset_counts() -> None:
     voices.launches = scan.launches = 0
     scan.max_decay_launches = scan.complex_launches = 0
+
+
+def sharded_programs(cg) -> list[dict]:
+    """The graph's sharded entries of the window-program cache."""
+    return [{"nb_total": k[2], "is_scan": k[3], "ranks": k[4],
+             "ttab_len": k[6], "captured": p.captured,
+             "collectives": p.collectives, "replays": p.replays,
+             "warmup_ms": p.warmup_ms, "capture_ms": p.capture_ms,
+             "pool_mb": p.pool_bytes / 1e6, "kernels_captured": p.kernels}
+            for k, p in gcompile._PROGRAM_CACHE.items()
+            if p.cg is cg and k[1] == "sharded"]
+
+
+def eager_sharded(cg, on: bool) -> None:
+    """Run the graph's sharded windows through the eager program (on) or
+    their cached programs (off)."""
+    if on:
+        cg.render_window_sharded = functools.partial(
+            type(cg).render_window_sharded, cg, eager=True)
+    else:
+        cg.__dict__.pop("render_window_sharded", None)
+
+
+MODES = ("graphs", "eager")
+
+
+def render_rank(mesh, d: str, packets: bytes, wav: str, reps: int) -> dict:
+    """One rank: the project's first render (its kernel launches and its
+    sharded programs), then `reps` timed render_device calls each way
+    after a warm-up each, in turns: through the program cache
+    ("graphs") and with every sharded window eager."""
+    _reset_counts()
     st = fixtures.load_state(d, mesh.device, packets, mesh=mesh)
     t0 = time.perf_counter()
     st.render()
@@ -274,24 +320,30 @@ def render_rank(mesh, d: str, packets: bytes, wav: str, reps: int) -> dict:
     out = {"rank": mesh.rank, "device": str(mesh.device), "launches": counts,
            "sharded_windows": cg.sharded_windows,
            "alone_windows": cg.live_bakes - cg.sharded_windows,
+           "sharded_programs": sharded_programs(cg),
            "first_render_wall_s": first}
     if mesh.rank == 0:
         out["ints"] = fixtures.read_wav_ints(Path(d) / wav)[0]
     m = mesh
-    walls, coll_s, coll_n = [], [], []
+    runs = {mode: {"walls_s": [], "collective_s": [], "collectives": []}
+            for mode in MODES}
     for i in range(reps + 1):
-        st.fb.set_time(cg.get_time())
-        m.collective_calls, m.collective_s = 0, 0.0
-        t0 = time.perf_counter()
-        st.render_device()
-        torch.cuda.synchronize(mesh.device)
-        dt = time.perf_counter() - t0
-        cg.set_time(0)
-        if i:
-            walls.append(dt)
-            coll_s.append(m.collective_s)
-            coll_n.append(m.collective_calls)
-    out.update(walls_s=walls, collective_s=coll_s, collectives=coll_n)
+        for mode in (MODES if i % 2 == 0 else MODES[::-1]):
+            eager_sharded(cg, mode == "eager")
+            st.fb.set_time(cg.get_time())
+            m.collective_calls, m.collective_s = 0, 0.0
+            t0 = time.perf_counter()
+            st.render_device()
+            torch.cuda.synchronize(mesh.device)
+            dt = time.perf_counter() - t0
+            cg.set_time(0)
+            if i:
+                runs[mode]["walls_s"].append(dt)
+                runs[mode]["collective_s"].append(m.collective_s)
+                runs[mode]["collectives"].append(m.collective_calls)
+    eager_sharded(cg, False)
+    out.update(runs["graphs"])
+    out.update({f"eager_{k}": v for k, v in runs["eager"].items()})
     return out
 
 
@@ -334,8 +386,9 @@ def single_walls(d: Path, packets: bytes, reps: int) -> dict:
 def summarize(name: str, res: dict, single_ints, bd: int) -> dict:
     """The checks and the printed numbers of one sharded run: raises
     RuntimeError if a rank launched no kernel of the project's path (c4:
-    all four of the default lane; c5: the voice mix) or rank 0's WAV is
-    out of bound against `single_ints`."""
+    all four of the default lane; c5: the voice mix), if its sharded
+    programs are not all captured (NCCL) or all eager (gloo), or if rank
+    0's WAV is out of bound against `single_ints`."""
     ranks = res["ranks"]
     need = ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan") \
         if name == "c4" else ("voice_mix",)
@@ -353,20 +406,226 @@ def summarize(name: str, res: dict, single_ints, bd: int) -> dict:
         raise RuntimeError(f"{name}: sharded WAV vs single-rank max |diff| "
                            f"{diff} > {WAV_TOL * full} (shapes {got.shape}, "
                            f"{single_ints.shape})")
-    walls = [r["walls_s"] for r in ranks]
+    want_captured = res["backend"] == "nccl"
+    for r in ranks:
+        if not r["sharded_programs"] or any(
+                p["captured"] != want_captured for p in r["sharded_programs"]):
+            raise RuntimeError(
+                f"{name}: rank {r['rank']}'s sharded programs "
+                f"{r['sharded_programs']} are not all "
+                f"{'captured' if want_captured else 'eager'} over "
+                f"{res['backend']}")
+    r0 = ranks[0]
     return {
         "backend": res["backend"], "shared_card": res["shared_card"],
         "ranks": len(ranks), "devices": [r["device"] for r in ranks],
         "launches_by_rank": [r["launches"] for r in ranks],
         "windows_sharded_alone": sorted(windows),
+        "sharded_programs_rank0": [
+            {k: p[k] for k in ("nb_total", "is_scan", "captured",
+                               "collectives", "replays", "warmup_ms",
+                               "capture_ms", "pool_mb")}
+            for p in r0["sharded_programs"]],
+        "sharded_entries": "captured" if want_captured else "eager",
         "wav_max_abs_diff": diff, "wav_bound": WAV_TOL * full,
         "first_render_wall_s": [r["first_render_wall_s"] for r in ranks],
-        "rank0_walls_s": walls[0], "median_s": statistics.median(walls[0]),
-        "collective_s_rank0": ranks[0]["collective_s"],
-        "collective_median_s": statistics.median(ranks[0]["collective_s"]),
-        "collectives_a_render": ranks[0]["collectives"][0],
+        "rank0_walls_s": r0["walls_s"], "median_s":
+            statistics.median(r0["walls_s"]),
+        "eager_rank0_walls_s": r0["eager_walls_s"],
+        "eager_median_s": statistics.median(r0["eager_walls_s"]),
+        "collective_s_rank0": r0["collective_s"],
+        "collective_median_s": statistics.median(r0["collective_s"]),
+        "eager_collective_median_s": statistics.median(
+            r0["eager_collective_s"]),
+        "collectives_a_render": r0["collectives"][0],
+        "eager_collectives_a_render": r0["eager_collectives"][0],
         "launch_wall_s": res["launch_wall_s"],
     }
+
+
+# the windows of a c4 or c5 render on 4 ranks (State._pick_nb), as
+# replay_check renders them
+REPLAY_WINDOWS = (512, 512, 512, 336)
+# the runtime calls that enqueue work on the card, as torch.profiler's
+# CPU-side rows name them
+ENQUEUES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
+            "cudaMemcpyAsync", "cudaMemsetAsync")
+PROFILE_TRIES = 3  # a trace without host rows is taken again
+
+
+def state_leaves(tree) -> list[torch.Tensor]:
+    """A numeric state tree's tensors: dicts in key order, tuples in
+    order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in state_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in state_leaves(v)]
+    return [tree]
+
+
+def _rewind(st) -> None:
+    """Back to t = 0 with fresh carries, so each pass renders the song's
+    windows as a first render does (the carries a render leaves at its
+    end, moved to t = 0, would raise the caps and mint programs once)."""
+    cg = st.compiled
+    cg.set_time(0)
+    cg._apply_carries({vi: type(c)() for vi, c in cg.carries.items()})
+
+
+def _enqueues_a_window(sts: dict, mode: str, windows: tuple, mesh) -> float:
+    """The host's enqueue rows (kernel and graph launches, copies, fills;
+    torch.profiler) a window of one pass of `windows` from t = 0 by the
+    State of `mode`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    st = sts[mode]
+    cg = st.compiled
+    cuda_t = torch.autograd.DeviceType.CUDA
+    for _ in range(PROFILE_TRIES):
+        _rewind(st)
+        torch.cuda.synchronize(mesh.device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for nb in windows:
+                st.fb.set_time(cg.get_time())
+                cg.render_window_sharded(st.fb, nb, mesh,
+                                         eager=mode == "eager")
+                st.fb.advance_blocks(nb)
+            torch.cuda.synchronize(mesh.device)
+        rows = sum(1 for e in prof.events()
+                   if e.name in ENQUEUES and e.device_type != cuda_t)
+        if rows:
+            return rows / len(windows)
+    raise RuntimeError(f"{PROFILE_TRIES} traces of the {mode} windows held "
+                       "no enqueue row")
+
+
+def replay_rank(mesh, projects: list, windows: tuple, reps: int) -> dict:
+    """One rank: for each (name, project dir, packets) of `projects`, two
+    States of the project in lockstep render `windows` (block counts from
+    t = 0, each a multiple of the world size) through
+    render_window_sharded, one through the program cache ("graphs") and
+    one eager; then `reps` more passes from t = 0 (fresh carries: the
+    same tables) with each window timed both ways in turns, and one
+    profiled pass each way. Returns per project: whether the first
+    pass's audio and numeric state were bit-identical and finite, the
+    kernel wrappers' launches in the first pass (counts set to 0 just
+    before it), the window walls (ms) and collectives a window each way
+    by window size, the enqueue rows a window, the graph State's windows
+    and replays, its sharded programs and its pool."""
+    dev = mesh.device
+    out = {}
+    for name, d, packets in projects:
+        sts = {m: fixtures.load_state(d, dev, packets, mesh=mesh)
+               for m in MODES}
+        for st in sts.values():
+            st.compiled.seed_caps(st.fb, st.cs, max(windows), prebake=False)
+        audio: dict[str, list] = {m: [] for m in MODES}
+        walls = {m: {nb: [] for nb in windows} for m in MODES}
+        colls: dict[str, dict] = {m: {} for m in MODES}
+        _reset_counts()
+        for i in range(reps + 1):
+            for st in sts.values():
+                _rewind(st)
+            for nb in windows:
+                for m in (MODES if i % 2 == 0 else MODES[::-1]):
+                    st = sts[m]
+                    cg = st.compiled
+                    st.fb.set_time(cg.get_time())
+                    calls = mesh.collective_calls
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    y = cg.render_window_sharded(st.fb, nb, mesh,
+                                                 eager=m == "eager")
+                    torch.cuda.synchronize(dev)
+                    dt = (time.perf_counter() - t0) * 1e3
+                    st.fb.advance_blocks(nb)
+                    if i == 0:
+                        audio[m].append(y.cpu())
+                    else:
+                        walls[m][nb].append(dt)
+                        colls[m][nb] = mesh.collective_calls - calls
+            if i == 0:
+                launches = _counts()  # both ways' first pass
+                states = {m: [t.cpu() for k in sorted(sts[m].compiled.
+                                                      num_state)
+                              for t in state_leaves(
+                                  sts[m].compiled.num_state[k])]
+                          for m in MODES}
+        cg = sts["graphs"].compiled
+        out[name] = {
+            "windows": list(windows),
+            "audio_bit_identical": all(
+                torch.equal(a, b) for a, b in zip(*audio.values())),
+            "state_bit_identical": all(
+                torch.equal(a, b) for a, b in zip(*states.values())),
+            "audio_finite": all(bool(torch.isfinite(a).all())
+                                for a in audio["graphs"]),
+            "launches_first_pass": launches,
+            "window_ms": walls,
+            "window_ms_median": {m: {str(nb): statistics.median(w)
+                                     for nb, w in walls[m].items()}
+                                 for m in MODES},
+            "collectives_a_window": {m: {str(nb): n for nb, n in c.items()}
+                                     for m, c in colls.items()},
+            "enqueues_a_window": {m: _enqueues_a_window(sts, m, windows,
+                                                        mesh)
+                                  for m in MODES},
+            "sharded_windows": cg.sharded_windows, "replays": cg.replays,
+            "captures": cg.captures, "programs": sharded_programs(cg),
+            "pool_mb": cg.pool_bytes / 1e6,
+        }
+    return out
+
+
+def replay_check(projects: list, windows: tuple = REPLAY_WINDOWS,
+                 reps: int = 5, need: dict | None = None) -> dict:
+    """`replay_rank` in a 1-rank NCCL world on cuda:0. Raises RuntimeError
+    listing every failed check: a project whose replayed windows' audio or
+    numeric state is not bit-identical to the eager program's, or not
+    finite; a graph window that was not a replay; a sharded program that
+    was not captured, or whose captured collectives differ from what the
+    eager program issues a window (or a replay adds); a kernel `need`
+    names for the project that the first pass never launched, or that a
+    program did not capture."""
+    (res,) = launch(replay_rank, 1, projects, tuple(windows), reps,
+                    backend="nccl", device="cuda", timeout_s=900.0)
+    fails: list[str] = []
+    for name, r in res.items():
+        for k in ("audio_bit_identical", "state_bit_identical",
+                  "audio_finite"):
+            if not r[k]:
+                fails.append(f"{name}: not {k}")
+        idle = [k for k in (need or {}).get(name, ())
+                if r["launches_first_pass"].get(k, 0) <= 0]
+        if idle:
+            fails.append(f"{name}: the first pass launched no {idle}")
+        passes = reps + 1 + 1  # the first, the timed and the profiled
+        if not r["replays"] == r["sharded_windows"] == \
+                passes * len(windows):
+            fails.append(f"{name}: {r['replays']} replays for "
+                         f"{r['sharded_windows']} sharded windows")
+        if len(r["programs"]) != len(set(windows)) or \
+                r["captures"] != len(set(windows)):
+            fails.append(f"{name}: {r['captures']} captures, programs "
+                         f"{[p['nb_total'] for p in r['programs']]}")
+        for p in r["programs"]:
+            nb = str(p["nb_total"])
+            eager_n = r["collectives_a_window"]["eager"].get(nb)
+            if not p["captured"] or p["collectives"] <= 0 or \
+                    p["collectives"] != eager_n or \
+                    r["collectives_a_window"]["graphs"].get(nb) != eager_n:
+                fails.append(f"{name}: program {nb}: captured "
+                             f"{p['captured']}, {p['collectives']} "
+                             f"collectives, the eager program {eager_n}")
+            missing = set((need or {}).get(name, ())) - \
+                set(p["kernels_captured"])
+            if missing:
+                fails.append(f"{name}: program {nb} captured no "
+                             f"{sorted(missing)}")
+    if fails:
+        raise RuntimeError("sharded replays: " + "; ".join(fails))
+    return res
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,8 +1,9 @@
 """The port on a CUDA card: the voice-mix, affine-scan, max-decay,
 complex-scan and exact-biquad kernels against their plain versions, the
 effects, small renders (the exact lane's, a chain-served one and a 24-bit
-one with the native host library on and off among them) and playback on
-the card against the port's CPU path. This file
+one with the native host library on and off among them), playback on
+the card against the port's CPU path, and sharded windows replayed from
+captured graphs with NCCL collectives inside (a 1-rank world). This file
 imports no JAX, so it also runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -635,16 +636,9 @@ def _drive(st, nb: int) -> list[np.ndarray]:
     st.scan_exact()
     windows(2)
     for k in sorted(cg.num_state):
-        out += [t.cpu().numpy() for t in _state_leaves(cg.num_state[k])]
+        out += [t.cpu().numpy() for t in shard_render.state_leaves(
+            cg.num_state[k])]
     return out
-
-
-def _state_leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _state_leaves(tree[k])]
-    if isinstance(tree, tuple):
-        return [x for v in tree for x in _state_leaves(v)]
-    return [tree]
 
 
 @pytest.mark.parametrize("cfg", sorted(_SMALL))
@@ -730,10 +724,6 @@ def test_capture_with_a_pageable_upload_raises_on_card(cuda, tmp_path,
     assert fresh.compiled.replays > 0
 
 
-_ENQUEUES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
-             "cudaMemcpyAsync", "cudaMemsetAsync")
-
-
 def test_a_dropped_program_is_not_freed_inside_a_capture_on_card(
         cuda, tmp_path):
     """A dropped program waits in a reference cycle for the collector; a
@@ -788,7 +778,8 @@ def test_replayed_c4_window_host_launches_on_card(cuda, tmp_path):
                                  ProfilerActivity.CUDA]) as prof:
             cg.render_window(st.fb, st.cs)
             torch.cuda.synchronize()
-        rows = [e.name for e in prof.events() if e.name in _ENQUEUES]
+        rows = [e.name for e in prof.events()
+                if e.name in shard_render.ENQUEUES]
         assert rows.count("cudaGraphLaunch") == 1, rows
         assert len(rows) <= 8, rows
     assert (cg.captures, cg.replays) == (1, 3)
@@ -863,3 +854,31 @@ def test_sharded_scans_on_two_ranks_sharing_the_card(cuda):
     np.testing.assert_array_equal(
         ranks[0]["gathered"], np.repeat([0.0, 1.0], 6).reshape(2, 3, 2))
     assert ranks[1]["gathered"] is None
+
+
+# -- sharded windows from captured graphs: a 1-rank NCCL world -----------
+
+
+def test_sharded_windows_replay_with_nccl_inside_on_card(cuda, tmp_path):
+    """c4's windows through render_window_sharded in a 1-rank NCCL world
+    (tools/shard_render.replay_check; NCCL refuses two ranks on one
+    card): two States in lockstep, one through the program cache and one
+    eager, give bit-identical audio and numeric state; every window of
+    the cached one replays a captured program that holds its collectives
+    (as many as the eager program issues a window, added to the mesh's
+    count by each replay) and launches all four c4 kernels; it raises
+    otherwise."""
+    if not torch.distributed.is_nccl_available():
+        pytest.skip("needs torch.distributed's NCCL backend")
+    _SMALL["c4"](tmp_path)
+    windows = (32, 16, 15)  # c4's 63 blocks
+    r = shard_render.replay_check(
+        [("c4", str(tmp_path), b"")], windows=windows, reps=1,
+        need={"c4": ("voice_mix", "affine_scan", "max_decay_scan",
+                     "complex_scan")})["c4"]
+    assert r["audio_bit_identical"] and r["state_bit_identical"]
+    assert sorted(p["nb_total"] for p in r["programs"]) == [15, 16, 32]
+    assert all(p["captured"] and p["collectives"] > 0 and p["ranks"] == 1
+               for p in r["programs"])
+    assert r["replays"] == r["sharded_windows"] == 3 * len(windows)
+    assert r["pool_mb"] > 0

@@ -253,13 +253,16 @@ import shard_job
 from termdaw_tpu_torch.parallel import launch
 ranks = launch(shard_job.render, 2, {str(tmp_path / 'c4')!r}, backend='gloo',
                device='cpu', timeout_s=120)
-assert all(n == 1 for n, _ in ranks), ranks
-assert not any(loaded for _, loaded in ranks), ranks
+assert all(n == 1 and progs == 1 for n, progs, _ in ranks), ranks
+assert not any(loaded for _, _, loaded in ranks), ranks
 print('JAXFREE')
 """
-    # a sharded render on 2 ranks: each rank reports the modules it loaded
+    # a sharded render on 2 ranks, through the program cache: each rank
+    # reports its sharded windows and program entries and the modules it
+    # loaded
     (tmp_path / "shard_job.py").write_text("""
 import sys
+from termdaw_tpu_torch.tools import shard_render
 from termdaw_tpu_torch.utils.fixtures import load_state
 
 
@@ -268,7 +271,8 @@ def render(mesh, d):
     st.render()
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in ('jax', 'jaxlib', 'termdaw_tpu'))
-    return st.compiled.sharded_windows, loaded
+    return (st.compiled.sharded_windows,
+            len(shard_render.sharded_programs(st.compiled)), loaded)
 """)
     proc = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True,

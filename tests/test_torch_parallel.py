@@ -15,7 +15,11 @@ The module starts three runs once and the tests read them:
   tests/subproc/mesh_default_check.py project: 8 kHz / 256, 250 blocks,
   scan then render) and c4 cut to 2 s (63 blocks); neither block count
   divides by 4, so each render ends with a window every rank renders
-  alone.
+  alone. Each sharded window runs its rank's entry of the window-program
+  cache (eager over gloo): the tests count the entries, their replays
+  and collectives, hold the WAV bit for bit to the same render with
+  every sharded window eager, and watch a longer time table and a
+  refresh drop the entries.
 
 Both sides take the same numpy inputs, made from a seed. This module
 imports no JAX at its top: the ranks import it to find their functions,
@@ -35,7 +39,7 @@ import pytest
 import torch
 import torch.multiprocessing as tmp_mp
 
-from termdaw_tpu_torch.engine.state import render_chunk_blocks
+from termdaw_tpu_torch.engine.state import State, render_chunk_blocks
 from termdaw_tpu_torch.fileio.midi import write_midi
 from termdaw_tpu_torch.fileio.wav import write_wav
 from termdaw_tpu_torch.ops import filters, fx, mix, scan
@@ -378,9 +382,16 @@ def _effects_rank(mesh) -> dict:
     return out
 
 
+def _sharded_keys(cg) -> list[tuple]:
+    return sorted((p["nb_total"], p["is_scan"], p["ttab_len"])
+                  for p in shard_render.sharded_programs(cg))
+
+
 def _render_rank(mesh, mesh_dir: str, c4_dir: str) -> dict:
-    """The two projects rendered sharded; then, on rank 0 alone, each
-    under TERMDAW_MESH=0."""
+    """The two projects rendered sharded, through the program cache and
+    then with every sharded window eager; a second render; a sharded
+    window past the time table, then a refresh; then, on rank 0 alone,
+    each under TERMDAW_MESH=0."""
     torch.set_num_threads(1)
     out = {}
     for name, d, wav, scan_first in (("mesh", mesh_dir, "out.wav", True),
@@ -395,9 +406,42 @@ def _render_rank(mesh, mesh_dir: str, c4_dir: str) -> dict:
                "chain": cg._prebaked is not None or bool(cg._recorded),
                "served": cg.served_windows, "state": _flat(cg.num_state),
                "t": cg.get_time(),
-               "collectives": mesh.collective_calls - calls}
+               "collectives": mesh.collective_calls - calls,
+               "cs": st.cs, "step": st._mesh_plan()[2],
+               "windows": cg.live_bakes, "replays": cg.replays,
+               "programs": shard_render.sharded_programs(cg)}
         if mesh.rank == 0:
             res["wav"] = fixtures.read_wav_ints(Path(d) / wav)[0]
+        # repeat renders: each starts from the carries the last one left at
+        # t = 0 (c4's ringing voices and notes raise its caps once)
+        res["repeat_render_captures"] = []
+        for _ in range(2):
+            captures = cg.captures
+            st.render()
+            res["repeat_render_captures"].append(cg.captures - captures)
+        # the same ranks, every sharded window on the eager program
+        eager = fixtures.load_state(d, mesh.device, mesh=mesh)
+        eager.output_file = str(Path(d) / "eager.wav")
+        shard_render.eager_sharded(eager.compiled, True)
+        calls = mesh.collective_calls
+        if scan_first:
+            eager.scan_exact()
+        eager.render()
+        res["eager_collectives"] = mesh.collective_calls - calls
+        res["eager_sharded_keys"] = _sharded_keys(eager.compiled)
+        if mesh.rank == 0:
+            res["eager_wav"] = fixtures.read_wav_ints(Path(d) / "eager.wav")[0]
+        # a sharded window past the time table: a longer table
+        res["keys_before_growth"] = _sharded_keys(cg)
+        n = int(cg._ttab.shape[0])
+        cg.set_time(n - cg.bl)
+        st.fb.set_time(cg.get_time())
+        cg.render_window_sharded(st.fb, 2 * mesh.size, mesh)
+        res["ttab_lens"] = (n, int(cg._ttab.shape[0]))
+        res["keys_after_growth"] = _sharded_keys(cg)
+        st.refresh()
+        res["programs_after_refresh"] = len(cg.programs())
+        if mesh.rank == 0:
             os.environ["TERMDAW_MESH"] = "0"
             try:
                 single = fixtures.load_state(d, mesh.device, mesh=mesh)
@@ -591,6 +635,93 @@ def test_sharded_wav_matches_reference_and_single_rank(ref, renders, name):
 @pytest.mark.parametrize("name", ["mesh", "c4"])
 def test_termdaw_mesh_0_renders_single_device(renders, name):
     assert renders[0][name]["single_sharded_windows"] == 0
+
+
+SCANS = {"mesh": (True, False), "c4": (False,)}  # the mesh project scans first
+
+
+def _sharded_shapes(name: str, r: dict) -> set[tuple[int, bool]]:
+    """(nb_total, is_scan) of every window State._pick_nb shards in the
+    project's render, and in the scan before it where there is one."""
+    shapes = set()
+    for is_scan in SCANS[name]:
+        left = r["cs"]
+        while left > 0:
+            nb = State._pick_nb(left, r["step"], N)
+            if nb % N == 0:
+                shapes.add((nb, is_scan))
+            left -= nb
+    return shapes
+
+
+@pytest.mark.parametrize("name", ["mesh", "c4"])
+def test_sharded_render_makes_one_program_a_window_shape(renders, name):
+    """One sharded entry a distinct (nb_total, is_scan) with one layout
+    and time table (c4's cut: the 60-block window alone), eager over gloo,
+    replayed once a sharded window. A repeat render mints no program once
+    its caps hold what the last render's carries bring to t = 0: the mesh
+    project's second render, c4's third (its second raises the caps of
+    the notes and voices still sounding, in the sharded and the alone
+    window alike, as a single-device render's would)."""
+    want = _sharded_shapes(name, renders[0][name])
+    assert want == ({(60, False)} if name == "c4" else
+                    {(248, True), (248, False)})
+    for r in renders:
+        r = r[name]
+        progs = r["programs"]
+        assert {(p["nb_total"], p["is_scan"]) for p in progs} == want
+        assert len(progs) == len(want)
+        assert {(p["ranks"], p["captured"]) for p in progs} == {(N, False)}
+        assert sum(p["replays"] for p in progs) == r["sharded_windows"]
+        # every window, sharded or alone, went through a cached program
+        assert r["replays"] == r["windows"]
+        assert r["repeat_render_captures"] == (
+            [0, 0] if name == "mesh" else [2, 0])
+
+
+@pytest.mark.parametrize("name", ["mesh", "c4"])
+def test_sharded_collectives_counted_by_program(renders, name):
+    """A render's collectives are its sharded programs' (a window's times
+    its replays) and one gather of the audio a rendered sharded window,
+    as many as with every sharded window on the eager program."""
+    for r in renders:
+        r = r[name]
+        progs = r["programs"]
+        assert all(p["collectives"] > 0 for p in progs)
+        assert r["collectives"] == sum(
+            p["replays"] * (p["collectives"] + (not p["is_scan"]))
+            for p in progs)
+        assert r["eager_collectives"] == r["collectives"]
+
+
+@pytest.mark.parametrize("name", ["mesh", "c4"])
+def test_cached_sharded_wav_bit_identical_to_eager(renders, name):
+    """The WAV of the sharded render through the program cache is bit
+    for bit the one with every sharded window eager, over the same ranks
+    (and within RENDER_TOL of the reference's: test above); the eager
+    render mints no sharded program."""
+    got, eager = renders[0][name]["wav"], renders[0][name]["eager_wav"]
+    assert np.abs(got).max() > 2 ** 14
+    np.testing.assert_array_equal(got, eager)
+    assert all(r[name]["eager_sharded_keys"] == [] for r in renders)
+
+
+@pytest.mark.parametrize("name", ["mesh", "c4"])
+def test_longer_time_table_drops_the_shorter_sharded_key(renders, name):
+    """A sharded window past the time table doubles it: every sharded
+    entry keyed to the shorter table goes, and the window's own entry
+    keys the longer one."""
+    for r in renders:
+        r = r[name]
+        n, n2 = r["ttab_lens"]
+        assert n2 == 2 * n
+        assert {k[2] for k in r["keys_before_growth"]} == {n}
+        assert r["keys_after_growth"] == [(2 * N, False, n2)]
+
+
+@pytest.mark.parametrize("name", ["mesh", "c4"])
+def test_refresh_drops_the_sharded_programs(renders, name):
+    assert all(r[name]["programs_after_refresh"] == 0 for r in renders)
 
 
 def test_sharded_render_gives_every_rank_the_window(renders):
