@@ -173,7 +173,27 @@ phase 12 gates those of a replayed c4 render against its device rows.
    pass (wrapper counts set to 0 just before it). Printed: the window
    walls (medians eager and
    replayed), the host's enqueue rows a window each way, each program's
-   warm-up and capture ms, pool MB and captured collectives.
+   warm-up and capture ms, pool MB and captured collectives;
+22. the shipped examples and the stream pipe through the port's CLI, in
+   child processes that block jax and the JAX package and fail if any
+   of their modules was loaded: a fresh copy of examples/ without
+   assets/; project, sample-project, neg-adsr-env, synth-adsr-fx and
+   generative each opened by `python -m termdaw_tpu_torch` on cuda with
+   `render` and `quit` on stdin (TERMDAW_SINK=null; the first run's
+   make_assets.py hook generates the assets through
+   utils/example_assets.py), the WAV within phase 5's bound of the port's
+   CPU render at full length (40 s, generative 16 s); each also rendered
+   in this process on the card, within that bound too, every window a
+   replay, and the five together launching the voice mix, affine and
+   max-decay kernels (`path_launches`). Printed: each example's CLI wall,
+   render_device median of 5 and launches, and the assets' generation
+   seconds. Then `python -m termdaw_tpu_torch.tools.stream_gen --duration
+   12 --streams kick,snare,hihat,ride,bass,chords` (paced) piped into
+   the CLI on the copy of examples/stream (TERMDAW_SINK=file:...,
+   TERMDAW_STREAM_IDLE=3): both exit 0, and the capture passes
+   tools/test_stream.sh's checks (more than 3 s, peak above 0.2, a
+   nonzero-frame ratio above 0.25). Printed: the captured seconds, the
+   peak, the ratio and the session's wall.
 
 Then the card line, the kernels line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -220,6 +240,10 @@ STREAM_SECONDS, STREAM_PERIOD_S = 10.0, 0.1   # phase 15's writer
 STREAM_DEADLINE_S = 30.0
 SHARD_RANKS = 4                               # phase 18
 NATIVE_RENDERS = 4           # phase 20: renders each way, one cold
+# phase 22: the manual examples, and the stream pipe's generator
+EXAMPLES = ("project", "sample-project", "neg-adsr-env", "synth-adsr-fx",
+            "generative")
+PIPE_SECONDS, PIPE_STREAMS = 12, "kick,snare,hihat,ride,bass,chords"
 # torch.profiler now and then returns a trace without device rows: a
 # trace is taken again up to this many times, and the empty ones counted
 PROFILE_TRIES = 5
@@ -1126,6 +1150,110 @@ def native_render(fixtures, tmp: Path, cuda, reset_counts) -> dict:
                   2 * -(-st.cs * BL * 147 // 160))}
 
 
+def example_renders(fixtures, tmp: Path, cuda, cpu) -> dict:
+    """Phase 22 (a): a fresh copy of examples/ (no assets/), each manual
+    example opened by the port's CLI on the card in a child process
+    (`render`, `quit` on stdin, TERMDAW_SINK=null; the first one's hook
+    generates the assets), its WAV within phase 5's bound of the port's
+    CPU render; then each rendered in this process on the card: every
+    window a replay, the kernels' path launches, the render_device
+    median of 5, the WAV equal in bound to the CPU's too. Returns the
+    examples' copy and the line's fields."""
+    import shutil
+
+    from termdaw_tpu_torch.utils import example_assets
+
+    root = tmp / "examples"
+    shutil.copytree(ROOT / "examples", root, ignore=shutil.ignore_patterns(
+        "assets", "outp.wav", "__pycache__"))
+    env = {**os.environ, "TERMDAW_SINK": "null"}
+    out: dict = {}
+    union: dict[str, int] = {}
+    for name in EXAMPLES:
+        d = root / name
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            fixtures.alone_argv("termdaw_tpu_torch", str(d)), cwd=ROOT,
+            input="render\nquit\n", capture_output=True, text=True,
+            timeout=600, env=env)
+        cli_wall = time.perf_counter() - t0
+        check(proc.returncode == 0 and "done rendering" in proc.stdout,
+              f"{name}: the CLI exited {proc.returncode}: "
+              f"{(proc.stdout + proc.stderr)[-2000:]}")
+        wav = d / "outp.wav"
+        cli, rate = fixtures.read_wav_ints(wav)
+        st, card, card_rate = render_wav(fixtures, d, cuda, b"", wav)
+        replays = check_replays(st, name)
+        launches = path_launches(st.compiled)
+        for k, n in launches.items():
+            union[k] = union.get(k, 0) + n
+        walls = wall_render(st, 5)
+        _, host, _ = render_wav(fixtures, d, cpu, b"", wav)
+        n = 2 * st.cs * BL
+        out[name] = {"cli_wall_s": cli_wall, **replays, "launches": launches,
+                     "render_device_s": walls,
+                     "median_s": statistics.median(walls),
+                     "cli": compare(f"{name} (CLI)", cli, host, 16, rate, SR,
+                                    n),
+                     "in_process": compare(name, card, host, 16, card_rate,
+                                           SR, n)}
+    for k in ("voice_mix", "affine_scan", "max_decay_scan"):
+        check(union.get(k, 0) > 0, f"no example launched the {k} kernel")
+    t0 = time.perf_counter()
+    example_assets.ensure(tmp / "assets_timed")
+    gen_s = time.perf_counter() - t0
+    return root, {"examples": out, "launches": union,
+                  "assets_files": len(list((root / "assets").iterdir())),
+                  "assets_generate_s": gen_s}
+
+
+def stream_pipe(fixtures, root: Path, tmp: Path) -> dict:
+    """Phase 22 (b): the port's stream_gen, paced, piped into the port's
+    CLI on the card on the examples' copy of examples/stream, both in
+    children with the JAX package blocked; the capture gated by
+    tools/test_stream.sh's checks."""
+    from termdaw_tpu_torch.fileio.wav import read_wav
+
+    cap = tmp / "capture.wav"
+    env = {**os.environ, "TERMDAW_SINK": f"file:{cap}",
+           "TERMDAW_STREAM_IDLE": "3"}
+    t0 = time.perf_counter()
+    gen = subprocess.Popen(
+        fixtures.alone_argv("termdaw_tpu_torch.tools.stream_gen",
+                            "--duration", str(PIPE_SECONDS), "--streams",
+                            PIPE_STREAMS),
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env)
+    try:
+        daw = subprocess.run(
+            fixtures.alone_argv("termdaw_tpu_torch", str(root / "stream")),
+            cwd=ROOT, stdin=gen.stdout, capture_output=True, text=True,
+            timeout=300, env=env)
+    finally:
+        gen.stdout.close()
+        try:
+            gen_rc = gen.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            gen.kill()
+            gen_rc = gen.wait()
+        gen_err = gen.stderr.read().decode()
+        gen.stderr.close()
+    wall = time.perf_counter() - t0
+    check(gen_rc == 0, f"stream_gen exited {gen_rc}: {gen_err[-2000:]}")
+    check(daw.returncode == 0, f"the stream CLI exited {daw.returncode}: "
+                               f"{(daw.stdout + daw.stderr)[-2000:]}")
+    a, spec = read_wav(cap, scale=True)
+    secs = len(a) / spec.sample_rate
+    peak = float(np.max(np.abs(a)))
+    nz = float(np.mean(np.any(a != 0, axis=1)))
+    check(bool(np.isfinite(a).all()), "the stream capture is not finite")
+    check(secs > 3 and peak > 0.2 and nz > 0.25,
+          f"stream pipe: captured {secs} s, peak {peak}, nonzero-frame "
+          f"ratio {nz} (gates: > 3 s, > 0.2, > 0.25)")
+    return {"generator_seconds": PIPE_SECONDS, "streams": PIPE_STREAMS,
+            "captured_s": secs, "peak": peak, "nonzero_frame_ratio": nz,
+            "session_wall_s": wall}
+
+
 def native_io(tmp: Path) -> dict:
     """Phase 20, the reader and the sample load: phase 15's stream bytes
     (two live streams, STREAM_SECONDS) decoded in 4096-byte reads and in
@@ -1982,6 +2110,12 @@ def main() -> int:
             check(False, str(e))
         emit("sharded_replays", card=card, transport="nccl, 1 rank on cuda:0",
              seconds=time.perf_counter() - t21, **replays)
+
+        # 22. the shipped examples and the stream pipe through the CLI
+        t22 = time.perf_counter()
+        root, ex = example_renders(fixtures, tmp, cuda, cpu)
+        emit("examples", card=card, seconds=time.perf_counter() - t22, **ex)
+        emit("stream_pipe", card=card, **stream_pipe(fixtures, root, tmp))
 
     print(card, flush=True)
     # launches: what each kernel's main-path render ran on the card (its

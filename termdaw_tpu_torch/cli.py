@@ -3,11 +3,12 @@
 Counterpart of termdaw_tpu/cli.py (reference main.rs:38-135): reads
 <wdir>/project.toml, prints the banner, builds the State on the asked
 device (default `cuda`; an unavailable device is an error, never a
-fallback), runs the initial refresh, opens the audio sink and runs the
-configured workflow: the manual one (workflows/ui.py: render, normalize,
-play and the time controls) or the stream one (workflows/stream.py: floww
-packets on stdin; TERMDAW_STREAM_IDLE=<seconds> ends it after that long
-without input).
+fallback), runs the project's make_assets.py if it has one (the shipped
+examples' `import _gen` resolves to utils/example_assets.py), runs the
+initial refresh, opens the audio sink and runs the configured workflow:
+the manual one (workflows/ui.py: render, normalize, play and the time
+controls) or the stream one (workflows/stream.py: floww packets on stdin;
+TERMDAW_STREAM_IDLE=<seconds> ends it after that long without input).
 
 Under a launcher that starts one process a rank (WORLD_SIZE > 1, with
 RANK, LOCAL_RANK, MASTER_ADDR and MASTER_PORT, as torchrun sets them),
@@ -76,9 +77,7 @@ def main(argv: list[str] | None = None) -> int:
     # that synthesizes its fixtures (idempotent by contract)
     gen = Path(wdir) / "make_assets.py"
     if gen.exists():
-        import runpy
-
-        runpy.run_path(str(gen), run_name="__main__")
+        _run_asset_hook(gen)
 
     main_path = Path(wdir) / config.settings.main
     if not main_path.exists():
@@ -106,6 +105,34 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def _run_asset_hook(gen: Path) -> None:
+    """Run a project's make_assets.py. The shipped examples' hooks do
+    `import _gen; _gen.ensure()` (examples/_gen.py, which writes through
+    the JAX package): while the hook runs, `_gen` is the port's copy
+    (utils/example_assets.py) bound to the assets directory beside the
+    project, where the examples' Lua reads `../assets/`. The previous
+    `sys.modules["_gen"]` entry, or its absence, is restored after."""
+    import runpy
+    import types
+
+    from .utils import example_assets
+
+    assets = gen.parent.resolve().parent / "assets"
+    shim = types.ModuleType("_gen", example_assets.__doc__)
+    shim.ASSETS = assets
+    shim.ensure = lambda: example_assets.ensure(assets)
+    missing = object()
+    prev = sys.modules.get("_gen", missing)
+    sys.modules["_gen"] = shim
+    try:
+        runpy.run_path(str(gen), run_name="__main__")
+    finally:
+        if prev is missing:
+            sys.modules.pop("_gen", None)
+        else:
+            sys.modules["_gen"] = prev
 
 
 def _run_workflow(config: Config, state) -> None:

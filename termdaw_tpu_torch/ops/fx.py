@@ -159,6 +159,14 @@ def delayed_read(x: torch.Tensor, tail: torch.Tensor,
     return xcat[p0] * (1 - frac) + xcat[p0 + 1] * frac
 
 
+def _lfo_sin(phase: torch.Tensor) -> torch.Tensor:
+    """sin of an f32 LFO phase, taken in float64 and rounded to f32: the
+    correctly rounded f32 sine on every device. torch's f32 sin differs
+    by an ulp between the CPU and CUDA on many phases, and a delayed read
+    amplifies a one-ulp step of its position by the signal's slope."""
+    return torch.sin(phase.double()).float()
+
+
 def _local_phase(ph0: torch.Tensor, rate: torch.Tensor, T: int, sr: int,
                  mesh: Mesh | None = None):
     """LFO phase of every frame (radians) and the next window's start
@@ -312,7 +320,7 @@ def _chorus_process(x, state, params, sr, static, mesh=None):
     out = torch.zeros_like(x)
     for v in range(voices):
         ph = 2.0 * math.pi * (v / voices)
-        lfo = torch.sin(phase + ph)
+        lfo = _lfo_sin(phase + ph)
         delay = (base_ms + depth_ms * (0.5 + 0.5 * lfo)) * (sr / 1000.0)
         out = out + delayed_read(x, halo, delay)
     out = out / _const(voices, out)
@@ -482,7 +490,7 @@ def _flanger_process(x, state, params, sr, static, mesh=None):
     T = x.shape[0]
     phase, ph_next = _local_phase(state["phase"], rate, T, sr, mesh)
     halo, new_tail = prev_frames(x, state["tail"], mesh)
-    lfo = torch.sin(phase)
+    lfo = _lfo_sin(phase)
     delay = (base_ms + depth_ms * (0.5 + 0.5 * lfo)) * (sr / 1000.0)
     wet = delayed_read(x, halo, delay)
     y = 0.5 * (x + wet)

@@ -22,6 +22,7 @@ All randomness comes from numpy generators with fixed seeds.
 
 from __future__ import annotations
 
+import sys
 import wave
 from pathlib import Path
 
@@ -327,3 +328,36 @@ def read_wav_ints(path) -> tuple[np.ndarray, int]:
     if width not in (2, 4):
         raise ValueError(f"{path}: {8 * width}-bit WAV not supported here")
     return np.frombuffer(raw, f"<i{width}").astype(np.int64), rate
+
+
+# Runs a module (argv: module, its arguments) as __main__ with jax and the
+# JAX package blocked, then exits 3 if any of their modules is loaded,
+# else with the module's code. `-c` keeps the cwd on sys.path.
+_ALONE = """
+import runpy, sys
+BLOCKED = ("jax", "jaxlib", "termdaw_tpu")
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ModuleNotFoundError(f"import of {name} blocked")
+sys.meta_path.insert(0, Block())
+mod = sys.argv[1]
+sys.argv = [mod] + sys.argv[2:]
+try:
+    runpy.run_module(mod, run_name="__main__", alter_sys=True)
+    code = 0
+except SystemExit as e:
+    code = e.code
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+if loaded:
+    print(f"loaded {loaded}", file=sys.stderr)
+    sys.exit(3)
+sys.exit(code)
+"""
+
+
+def alone_argv(module: str, *args: str) -> list[str]:
+    """The argv of a child process that runs `python -m module args` with
+    nothing of JAX or the JAX package importable, and fails if any of it
+    was loaded all the same. Run it from the repo root."""
+    return [sys.executable, "-c", _ALONE, module, *args]

@@ -142,6 +142,19 @@ def test_delayed_reads_on_noise_within_the_position_bound(kind):
         assert np.abs(got - want).max() <= bound
 
 
+def test_lfo_sine_is_correctly_rounded():
+    """The chorus's and flanger's LFO sine (fx._lfo_sin) is the f32
+    rounding of the float64 sine on every phase they take ([0, 2*pi) plus
+    a voice offset under 4*pi/3), so the CPU and a CUDA card agree on it
+    (torch's f32 sin differs between them by an ulp)."""
+    ph = np.random.default_rng(5).uniform(0, 10.5, 200000).astype(np.float32)
+    ph[:3] = [0.0, np.float32(math.pi), np.float32(2 * math.pi)]
+    want = np.sin(ph.astype(np.float64)).astype(np.float32)
+    got = fx._lfo_sin(torch.from_numpy(ph)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
 def _feedback64(x, tail, g, D):
     y = np.zeros(x.shape, np.float64)
     hist = np.concatenate([tail.astype(np.float64), y])

@@ -24,6 +24,7 @@ from termdaw_tpu_torch.fileio.packets import (
     PacketDecoder, encode_events, encode_text,
 )
 from termdaw_tpu_torch.fileio.wav import write_wav
+from termdaw_tpu_torch.utils import example_assets
 from termdaw_tpu_torch.utils.fixtures import drum, load_state
 from termdaw_tpu_torch.workflows.stream import run_stream_workflow
 
@@ -110,17 +111,12 @@ set_output("v");
     assert "could not decode" in capsys.readouterr().out
 
 
-def test_stream_example_plays_packets(tmp_path, monkeypatch):
+def test_stream_example_plays_packets(tmp_path):
     """The shipped stream example (examples/stream, its assets generated
-    into a temp dir) in the port: fed packets render finite, audible
-    audio (mirror of tests/test_examples.py:107)."""
-    sys.path.insert(0, str(REPO / "examples"))
-    try:
-        import _gen
-    finally:
-        sys.path.pop(0)
-    monkeypatch.setattr(_gen, "ASSETS", tmp_path / "assets")
-    _gen.ensure()
+    into a temp dir by the port's utils/example_assets.py) in the port:
+    fed packets render finite, audible audio (mirror of
+    tests/test_examples.py:107)."""
+    example_assets.ensure(tmp_path / "assets")
     d = tmp_path / "stream"
     d.mkdir()
     for f in ("project.lua", "project.toml"):
