@@ -64,8 +64,11 @@ phase 12 gates those of a replayed c4 render against its device rows.
    plain version (CUDA events per wrapper call); and each kernel's device
    time per call (torch.profiler, all the kernels a call launches; a
    trace that lost rows is taken again) beside
-   its bound (bytes read and written once at 3.35 TB/s, or f32 operations
-   at 67 TFLOP/s) and the share of the bound it reaches: the scans at
+   its bound (the (flops, bytes) its wrapper records, the `*_work`
+   functions beside the wrappers: bytes read and written once at one H100
+   SXM's 3.35 TB/s, or f32 operations at its 67 TFLOP/s, from
+   utils/roofline.chip_peaks) and the share of the bound it reaches: the
+   scans at
    every shape c3 and c4 run them at, the max-decay also at [1025, 4],
    the voice mix in both regimes;
 12. torch.profiler traces of three c4 renders: replayed from graphs and
@@ -193,7 +196,19 @@ phase 12 gates those of a replayed c4 render against its device rows.
    TERMDAW_STREAM_IDLE=3): both exit 0, and the capture passes
    tools/test_stream.sh's checks (more than 3 s, peak above 0.2, a
    nonzero-frame ratio above 0.25). Printed: the captured seconds, the
-   peak, the ratio and the session's wall.
+   peak, the ratio and the session's wall;
+23. the roofline (utils/roofline.py): c5, c1, c2, c3 and c4 each loaded
+   fresh on the card (rendered once, so its window programs are captured)
+   and on the CPU; CompiledGraph.window_cost at every window size of the
+   render, counted on both devices, must give equal flops, bytes accessed
+   and arg, out and temp bytes (a mismatch names the aten ops whose counts
+   differ); then config_roofline over phase 19's graph and eager
+   render_device medians. Printed: each window's counts (op calls, the
+   kernels' records, the top ops by bytes), each config's dicts with the
+   card's name and power limit (GFLOP/s, logical and phys-est GB/s, their
+   shares of the card's peaks where chip_peaks knows the card, and the
+   bound), the reference's analytic floor beside them, and the phase's
+   seconds.
 
 Then the card line, the kernels line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -226,8 +241,9 @@ PLAYER_ATOL = 1e-5
 COMB_D, DELAY_D = 1785, 5760                  # c4's feedback lines at 48 kHz
 SLOW_POLE, SLOW_HZ = 0.9999, 20.0             # phases 4 and 9's slow poles
 SLOW_DECAY_T = 100003                         # phase 9's long slow decay
-# one H100 SXM, published peaks: HBM3 bytes/s, f32 flop/s
-PEAK_BYTES_S, PEAK_F32_FLOPS = 3.35e12, 67e12
+# the per-kernel bounds are held against one H100 SXM's published peaks
+# (utils/roofline.chip_peaks of this name)
+BOUND_CARD = "NVIDIA H100 80GB HBM3"
 # the exact lane's latency bound: 3 dependent FP32 operations of 4 cycles
 # a frame at the H100 SXM's 1.98 GHz boost clock
 BIQUAD_CYCLES_A_FRAME, BOOST_HZ = 12, 1.98e9
@@ -429,11 +445,17 @@ def affine_shapes() -> dict:
     return shapes
 
 
-def bound(nbytes: float, flops: float) -> dict:
-    """The least time the card could take: the bytes read once and
-    written once over HBM's rate, or the f32 operations over the peak
-    f32 rate, whichever is larger."""
-    tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+def bound(work: tuple[float, float]) -> dict:
+    """The least time the card could take for a kernel call's work, the
+    (flops, bytes) its wrapper records (ops/scan.py, ops/voices.py,
+    ops/filters.py `*_work`): the bytes read once and written once over
+    HBM's rate, or the f32 operations over the peak f32 rate, whichever
+    is larger."""
+    from termdaw_tpu_torch.utils.roofline import chip_peaks
+
+    tflops, gbps = chip_peaks(BOUND_CARD)
+    flops, nbytes = work
+    tb, tf = nbytes / (gbps * 1e9), flops / (tflops * 1e12)
     return {"bound_ms": max(tb, tf) * 1e3,
             "bound_by": "bytes" if tb >= tf else "operations"}
 
@@ -466,12 +488,12 @@ def device_ms(fn, reps: int = 20) -> float:
                        f"device rows in {PROFILE_TRIES} traces")
 
 
-def timed(fn, plain, nbytes: float, flops: float) -> dict:
+def timed(fn, plain, work: tuple[float, float]) -> dict:
     """A kernel's device ms per call beside its bound, the wrapper's
     CUDA-event ms per call (host dispatch included when that is longer)
     and the plain version's."""
     ms = device_ms(fn)
-    b = bound(nbytes, flops)
+    b = bound(work)
     return {"ms": ms, "call_ms": event_ms(fn, 50),
             "plain_ms": event_ms(plain, 20), **b,
             "bound_share": b["bound_ms"] / ms}
@@ -1254,6 +1276,73 @@ def stream_pipe(fixtures, root: Path, tmp: Path) -> dict:
             "session_wall_s": wall}
 
 
+def roofline_check(fixtures, projects, ab: dict, cuda, cpu) -> dict:
+    """Phase 23: each config on a fresh State on the card and on the CPU,
+    from the same project. window_cost at every window size
+    `_window_counts` gives, from time 0, must count the same flops, bytes
+    and storages on both devices (a mismatch names the aten ops whose
+    counts differ). Then the card's State renders once (its window
+    programs captured: their pool is the peak) and config_roofline runs
+    over phase 19's graph and eager render medians."""
+    from termdaw_tpu_torch.utils import roofline
+
+    out = {}
+    for cfg, d, pk in projects:
+        sts = {"cuda": fixtures.load_state(d, cuda, pk),
+               "cpu": fixtures.load_state(d, cpu, pk)}
+        counts = roofline._window_counts(sts["cuda"])
+        check(counts == roofline._window_counts(sts["cpu"]),
+              f"{cfg}: the window sizes differ on the card and the CPU")
+        windows = {}
+        for nb in sorted(counts):
+            cost = {}
+            for dev, st in sts.items():
+                _, _, step = st._mesh_plan()
+                st.compiled.seed_caps(st.fb, st.cs, step)
+                st.compiled.set_time(0)
+                st.fb.set_time(0)
+                cost[dev] = st.compiled.window_cost(st.fb, nb)
+            g, c = cost["cuda"], cost["cpu"]
+            differ = sorted(op for op in set(g["ops"]) | set(c["ops"])
+                            if g["ops"].get(op) != c["ops"].get(op))
+            for k in ("flops", "bytes accessed"):
+                check(g[k] == c[k], f"{cfg}, {nb}-block window: {k} "
+                      f"{g[k]} on the card, {c[k]} on the CPU; ops that "
+                      f"differ: {differ}")
+            for k in ("arg_bytes", "out_bytes", "temp_bytes"):
+                check(g["_mem"][k] == c["_mem"][k], f"{cfg}, {nb}-block "
+                      f"window: {k} {g['_mem'][k]} on the card, "
+                      f"{c['_mem'][k]} on the CPU; ops that differ: "
+                      f"{differ}")
+            ops = g["ops"]
+            windows[str(nb)] = {
+                "count": counts[nb], "flops": g["flops"],
+                "bytes_accessed": g["bytes accessed"], **g["_mem"],
+                "ops_equal": not differ,
+                "op_calls": sum(r[0] for r in ops.values()),
+                "kernels": {k: r for k, r in ops.items()
+                            if k.startswith("kernel:")},
+                "top_ops_by_bytes": dict(sorted(
+                    ops.items(), key=lambda kv: -kv[1][2])[:8]),
+            }
+        median = {mode: statistics.median(
+            r["median_s"] for r in ab[cfg]["runs"] if r["mode"] == mode)
+            for mode in ("graphs", "eager")}
+        floor = roofline._analytic_window_model(sts["cuda"].compiled, counts)
+        sts["cuda"].render()
+        torch.cuda.synchronize()
+        out[cfg] = {
+            "windows": windows, "render_device_median_s": median,
+            **{mode: roofline.config_roofline(sts["cuda"], s, SECONDS)
+               for mode, s in median.items()},
+            "reference_analytic_floor": {"gflops": floor[0] / 1e9,
+                                         "gbytes": floor[1] / 1e9},
+        }
+        for st in sts.values():
+            st.compiled.release_chains()
+    return out
+
+
 def native_io(tmp: Path) -> dict:
     """Phase 20, the reader and the sample load: phase 15's stream bytes
     (two live streams, STREAM_SECONDS) decoded in 4096-byte reads and in
@@ -1639,12 +1728,10 @@ def main() -> int:
         # the max-decay also on 4 lanes, and the tiled scans at every shape
         # c3 and c4 run them at: device time beside the bound
         def mix_timed(a):
-            nbytes = sum(t.numel() * t.element_size() for t in a) + \
-                C5_NB * BL * 2 * 4
             return dict(lpad=a[0].shape[1], **timed(
                 lambda: voices.voice_mix_stereo(*a, C5_NB, BL),
                 lambda: voices.voice_mix_stereo_plain(*a, C5_NB, BL),
-                nbytes, 2 * C5_NB * C5_P * BL * 2))
+                voices.voice_mix_stereo_work(*a, C5_NB, BL)))
 
         mix_t = {"resident": mix_timed(args),
                  "streamed": mix_timed(long_args)}
@@ -1655,7 +1742,7 @@ def main() -> int:
             return dict(shape=[T, C], **timed(
                 lambda: scan.max_decay_scan(*dev),
                 lambda: scan.max_decay_scan_plain(*dev),
-                (2 * T * C + 2 * C) * 4, 2 * T * C))
+                scan.max_decay_scan_work(*dev)))
 
         md_4 = [torch.from_numpy(v).to(cuda) for v in (
             np.abs(gen.normal(size=(1025, 4))).astype(np.float32),
@@ -1672,13 +1759,13 @@ def main() -> int:
             affine_t[name] = dict(shape=[T, C], **timed(
                 lambda: scan.affine_scan(*ab),
                 lambda: scan.affine_scan_plain(*ab),
-                (2 * T * C + 2 * C) * 4, 2 * T * C))
+                scan.affine_scan_work(*ab)))
         dev = fxin["complex"][1]
         T, C = dev[0].shape
         complex_t = {"eq3_stage": dict(shape=[T, C], **timed(
             lambda: scan.complex_affine_scan(*dev),
             lambda: scan.complex_affine_scan_plain(*dev),
-            (4 * T * C + 4 * C) * 4, 8 * T * C))}
+            scan.complex_affine_scan_work(*dev)))}
         per_kernel["affine_scan"] = affine_t["band_pass"]
         per_kernel["complex_affine_scan"] = complex_t["eq3_stage"]
         emit("timings", card=card,
@@ -1742,7 +1829,7 @@ def main() -> int:
         # go faster than their dependent chain: the operations' term is
         # that chain at FP32 latency, far above bytes or peak-rate flops
         latency_ms = SCAN_T * BIQUAD_CYCLES_A_FRAME / BOOST_HZ * 1e3
-        bq_bound = bound(2 * SCAN_T * 4 * 4, 9 * SCAN_T * 4)
+        bq_bound = bound(filters.biquad_apply_sequential_work(*bq_args))
         if latency_ms > bq_bound["bound_ms"]:
             bq_bound = {"bound_ms": latency_ms, "bound_by": "operations"}
         bq_t = {"ms": bq_ms, "call_ms": event_ms(
@@ -2116,6 +2203,15 @@ def main() -> int:
         root, ex = example_renders(fixtures, tmp, cuda, cpu)
         emit("examples", card=card, seconds=time.perf_counter() - t22, **ex)
         emit("stream_pipe", card=card, **stream_pipe(fixtures, root, tmp))
+
+        # 23. the roofline: each config's counted work on the card and the
+        # CPU, and its share of the card's peaks
+        t23 = time.perf_counter()
+        rl = roofline_check(fixtures, (
+            ("c5", d5, packets), ("c1", d1, b""), ("c2", tmp / "c2", b""),
+            ("c3", tmp / "c3", b""), ("c4", d4, b"")), ab, cuda, cpu)
+        emit("roofline", card=card, **rl,
+             seconds=time.perf_counter() - t23)
 
     print(card, flush=True)
     # launches: what each kernel's main-path render ran on the card (its

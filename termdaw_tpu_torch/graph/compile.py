@@ -1289,6 +1289,63 @@ class CompiledGraph:
         self.graph.t = self.t
         return audio
 
+    def window_cost(self, fb: FlowwBank, nb: int,
+                    is_scan: bool = False) -> dict:
+        """The work of the window program `render_window(fb, nb, is_scan)`
+        would run at the current time, counted op by op
+        (utils/roofline.count_work; reference compile.py:1073-1111, which
+        read XLA's cost analysis): {"flops", "bytes accessed", "_mem":
+        {arg_bytes, out_bytes, temp_bytes[, peak_bytes]}, "ops" (per aten
+        op or kernel: [calls, flops, bytes]), "source"}. The window is
+        baked live and its eager program run once over uploaded buffers
+        with `write_state=False`, so the state it would write back is not
+        in `out_bytes`. `peak_bytes`, on the card only: the captured
+        program of the window's key, its pool bytes and static inputs.
+
+        Advances neither the graph's time nor the floww bank's, and leaves
+        the numeric state, the carries, the chains, the bake caps, the
+        counters and the program cache as they were: a time table longer
+        than the graph's is made for this count alone."""
+        from ..utils.roofline import count_work
+
+        t0 = self.t
+        caps = {k: dict(v) for k, v in self.bake_caps.items()}
+        hwm = dict(_CAP_HWM)
+        try:
+            bakes, _ = self._bake_all(fb, t0, nb)
+        finally:
+            self.bake_caps.clear()
+            self.bake_caps.update(caps)
+            _CAP_HWM.clear()
+            _CAP_HWM.update(hwm)
+        ints, floats, layout = _pack_bakes(bakes)
+        ints, floats = self._upload_packed(ints, floats)
+        self._pack_fx()
+        ttab = self._ttab
+        ttab_len = 0
+        if self._uses_time:
+            need = max(t0 + nb * self.bl, self._ttab_min_frames)
+            if ttab is None or ttab.shape[0] < need:
+                self._ttab = torch.from_numpy(
+                    time_table(self.sr, need)).to(self.device)
+            ttab_len = int(self._ttab.shape[0])
+        t0_dev = torch.full((), t0, dtype=torch.int64, device=self.device)
+        try:
+            with filters.exact_biquad_scope(self.exact_biquad), \
+                    count_work() as work:
+                audio = self._program(_unpack_bakes(ints, floats, layout),
+                                      t0_dev, nb, is_scan, write_state=False)
+        finally:
+            self._ttab = ttab
+        mem = work.memory(audio)
+        p = _PROGRAM_CACHE.get((self.serial, nb, is_scan, layout, ttab_len))
+        if p is not None and p.graph is not None:
+            mem["peak_bytes"] = p.pool_bytes + _nbytes(p.ints, p.floats,
+                                                       p.t0)
+        return {"flops": work.flops, "bytes accessed": work.bytes,
+                "_mem": mem, "ops": work.ops,
+                "source": "torch_dispatch_count"}
+
     def render_window_sharded(self, fb: FlowwBank, nb_total: int, mesh,
                               is_scan: bool = False,
                               eager: bool = False) -> torch.Tensor:

@@ -70,6 +70,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import Mesh, all_gather
+from ..utils.roofline import counted
 from .scan import (
     _affine, _caffine, affine_scan, affine_summary, complex_affine_scan,
     complex_summary,
@@ -288,6 +289,16 @@ def biquad_seq_plain(x, b0, b1, b2, a1, a2, state):
             torch.from_numpy(s).to(x.device))
 
 
+def biquad_apply_sequential_work(x: torch.Tensor, coefs: tuple,
+                                 state: torch.Tensor) -> tuple[float, float]:
+    """(flops, bytes) of one biquad_apply_sequential: 5 multiplies and 4
+    adds a frame a lane; x, the 5 coefficient lanes and the state read
+    once, y and the new state written once."""
+    T, C = x.shape
+    return 9.0 * T * C, (2.0 * T * C + (5 + 2 * 4) * C) * 4
+
+
+@counted(biquad_apply_sequential_work)
 def biquad_apply_sequential(x: torch.Tensor, coefs: tuple,
                             state: torch.Tensor):
     """The exact-order sequential biquad over x [T, C] (reference

@@ -45,6 +45,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.roofline import counted
+
 # launches of each CUDA kernel by its wrapper (CPU calls do not count)
 launches = 0             # affine_scan
 max_decay_launches = 0   # max_decay_scan
@@ -179,6 +181,31 @@ def _check(op: str, seqs: tuple, lanes: tuple) -> None:
         raise ValueError(f"{op}: unsupported device {dev}")
 
 
+def affine_scan_work(b: torch.Tensor, a: torch.Tensor,
+                     y0: torch.Tensor) -> tuple[float, float]:
+    """(flops, bytes) of one affine_scan: a multiply-add a frame a lane;
+    b, a and y0 read once, y written once."""
+    T, C = b.shape
+    return 2.0 * T * C, (2.0 * T * C + 2 * C) * 4
+
+
+# a multiply and a max a frame a lane; x, r and y0 read once, y written
+# once: the affine scan's count
+max_decay_scan_work = affine_scan_work
+
+
+def complex_affine_scan_work(
+    f_r: torch.Tensor, f_i: torch.Tensor, p_r: torch.Tensor,
+    p_i: torch.Tensor, s_r: torch.Tensor, s_i: torch.Tensor,
+) -> tuple[float, float]:
+    """(flops, bytes) of one complex_affine_scan: a complex multiply-add
+    (8 real operations) a frame a lane; f, p and s read once, u written
+    once."""
+    T, C = f_r.shape
+    return 8.0 * T * C, (4.0 * T * C + 4 * C) * 4
+
+
+@counted(affine_scan_work)
 def affine_scan(b: torch.Tensor, a: torch.Tensor,
                 y0: torch.Tensor) -> torch.Tensor:
     """y [T, C] with y[t, c] = a[c] * y[t-1, c] + b[t, c], y[-1] = y0.
@@ -196,6 +223,7 @@ def affine_scan(b: torch.Tensor, a: torch.Tensor,
     return y
 
 
+@counted(max_decay_scan_work)
 def max_decay_scan(x: torch.Tensor, r: torch.Tensor,
                    y0: torch.Tensor) -> torch.Tensor:
     """y [T, C] with y[t, c] = max(x[t, c], r[c] * y[t-1, c]), y[-1] = y0;
@@ -213,6 +241,7 @@ def max_decay_scan(x: torch.Tensor, r: torch.Tensor,
     return y
 
 
+@counted(complex_affine_scan_work)
 def complex_affine_scan(
     f_r: torch.Tensor, f_i: torch.Tensor, p_r: torch.Tensor,
     p_i: torch.Tensor, s_r: torch.Tensor, s_i: torch.Tensor,

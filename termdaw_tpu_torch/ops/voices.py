@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.roofline import counted
+
 # launches of the CUDA kernel by voice_mix_stereo (CPU calls do not count)
 launches = 0
 
@@ -96,6 +98,19 @@ def _check(sample_padded, begins, amp_l, amp_r, nb, bl) -> None:
                          "layout has 2 * bl + L + 256)")
 
 
+def voice_mix_stereo_work(sample_padded: torch.Tensor, begins: torch.Tensor,
+                          amp_l: torch.Tensor, amp_r: torch.Tensor, nb: int,
+                          bl: int) -> tuple[float, float]:
+    """(flops, bytes) of one voice_mix_stereo: a multiply-add a slot a
+    frame a channel; its inputs read once, the [nb*bl, 2] mix written
+    once."""
+    P = begins.shape[1]
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (sample_padded, begins, amp_l, amp_r))
+    return 2.0 * nb * P * bl * 2, nbytes + nb * bl * 2 * 4
+
+
+@counted(voice_mix_stereo_work)
 def voice_mix_stereo(
     sample_padded: torch.Tensor,  # [2, Lpad] f32 (see make_padded_sample)
     begins: torch.Tensor,         # [nb, P] int32, in bounds

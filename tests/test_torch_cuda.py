@@ -3,7 +3,8 @@ complex-scan and exact-biquad kernels against their plain versions, the
 effects, small renders (the exact lane's, a chain-served one and a 24-bit
 one with the native host library on and off among them), playback on
 the card against the port's CPU path, and sharded windows replayed from
-captured graphs with NCCL collectives inside (a 1-rank world). This file
+captured graphs with NCCL collectives inside (a 1-rank world), and the
+roofline's window counts equal on the card and the CPU. This file
 imports no JAX, so it also runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -474,6 +475,37 @@ def test_small_c4_render_on_card_matches_cpu(cuda, tmp_path):
     want, _ = read_wav_ints(tmp_path / "outp.wav")
     assert np.abs(got).max() > 16000
     assert np.abs(got - want).max() <= 1
+
+
+@pytest.mark.parametrize("write", [
+    lambda d: write_c1_project(d, 2.0, 8000, 256, render_sr=4000),
+    lambda d: write_c4_project(d, 2.0, 8000, 256, render_sr=8000),
+], ids=["c1", "c4"])
+def test_window_cost_equal_on_card_and_cpu(cuda, tmp_path, write):
+    """A window's count (utils/roofline.count_work) on fresh States is the
+    same on the card as on the CPU, op by op: the kernel wrappers record
+    their formulas on both devices. Once a render captured the window's
+    program, the count on the card carries its pool and static inputs as
+    the peak (c1: no event vertex, so the window at time 0 after the
+    render has the captured program's layout)."""
+    from termdaw_tpu_torch.utils import roofline
+
+    write(tmp_path)
+    costs, states = [], []
+    for dev in (cuda, torch.device("cpu")):
+        st = load_state(tmp_path, dev)
+        (nb,) = roofline._window_counts(st)
+        costs.append(st.compiled.window_cost(st.fb, nb))
+        states.append(st)
+    got, want = costs
+    assert got["ops"] == want["ops"]
+    assert got == want
+    assert "peak_bytes" not in got["_mem"]  # no program captured yet
+    st = states[0]
+    st.render()
+    if not st.compiled.carries:
+        st.fb.set_time(0)
+        assert st.compiled.window_cost(st.fb, nb)["_mem"]["peak_bytes"] > 0
 
 
 def test_small_c4_24_bit_render_on_card_native_on_and_off(cuda, tmp_path,

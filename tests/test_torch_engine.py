@@ -235,7 +235,12 @@ write_c3_project({str(tmp_path / 'c3')!r}, 2.0, 8000, 256)
 load_state({str(tmp_path / 'c3')!r}, torch.device('cpu')).render()
 write_c4_project({str(tmp_path / 'c4')!r}, 1.0, 8000, 256, render_sr=8000,
                  bd=24)
-load_state({str(tmp_path / 'c4')!r}, torch.device('cpu')).render()
+st4 = load_state({str(tmp_path / 'c4')!r}, torch.device('cpu'))
+st4.render()
+from termdaw_tpu_torch.utils import roofline
+st4.fb.set_time(st4.compiled.get_time())
+assert st4.compiled.window_cost(st4.fb, 32)['flops'] > 0
+assert roofline.config_roofline(st4, 0.1, 1.0)['window_gflops'] > 0
 from termdaw_tpu_torch import native
 from termdaw_tpu_torch.fileio.packets import PacketDecoder
 assert len(PacketDecoder().feed(packets)) > 0
