@@ -208,7 +208,24 @@ phase 12 gates those of a replayed c4 render against its device rows.
    card's name and power limit (GFLOP/s, logical and phys-est GB/s, their
    shares of the card's peaks where chip_peaks knows the card, and the
    bound), the reference's analytic floor beside them, and the phase's
-   seconds.
+   seconds;
+24. the benchmark harness: `python -m termdaw_tpu_torch.bench` (40 s, the
+   seven configs of its BUILDERS: c1-c5 above, c6_stream256 and
+   c7_stream1024 with 256 and 1024 streamed tracks, c7 last) in a child,
+   with jax and the JAX package blocked in each of its processes (a
+   sitecustomize on PYTHONPATH that logs every process and every blocked
+   import). Gated: exit 0, exactly one stdout line of at most 2000
+   characters, its value > 0, no error key, every config's chip and e2e
+   xRT in the line, and in the sidecar every config's chip and e2e p50
+   ms and roofline, the stream latency and the playback pacing keys; the
+   log shows the watchdog and the measuring child and no blocked import.
+   Printed: the line and the sidecar's extra. Then c6 and c7 rendered on the card from fresh
+   States (the voice mix launched, every window a replay), each WAV
+   within phase 5's bound of the port's CPU render; and the voice mix at
+   c6's and c7's shapes (the arguments of each one's first 375-block
+   window, recorded from an eager window: 64 and 128 slots at 40 s, c7's
+   four 32-slot chunks) bit-exact to its plain version and timed beside
+   its bound (at 128 slots the operations bound it).
 
 Then the card line, the kernels line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1422,6 +1439,147 @@ def native_io(tmp: Path) -> dict:
             "calls": dict(native.calls)}
 
 
+def window_mix_args(st, nb: int) -> tuple:
+    """The voice mix's arguments (padded buffer, begins, left and right
+    amps) in the first nb-block window of st's render, recorded from an
+    eager run of that window as the window program passes them; the
+    State is left at time 0."""
+    from termdaw_tpu_torch.ops import voices
+
+    seen = []
+    real = voices.voice_mix_stereo
+
+    def record(*a):
+        seen.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                          for x in a))
+        return real(*a)
+
+    cg = st.compiled
+    cg.set_time(0)
+    st.fb.set_time(0)
+    cg.seed_caps(st.fb, st.cs, nb)
+    voices.voice_mix_stereo = record
+    try:
+        cg.render_window(st.fb, nb, eager=True)
+        torch.cuda.synchronize()
+    finally:
+        voices.voice_mix_stereo = real
+    cg.set_time(0)
+    st.fb.set_time(0)
+    check(len(seen) == 1 and seen[0][4:] == (nb, BL),
+          f"an eager {nb}-block window made {len(seen)} voice-mix calls")
+    return seen[0][:4]
+
+
+def bench_run(fixtures, tmp: Path) -> dict:
+    """Phase 24 (a): the port's benchmark entry point in a child with the
+    JAX package blocked in every process it starts, at its defaults (40 s,
+    5 repetitions, the seven configs, c7 last); its one line, its sidecar
+    and the block's log gated as the docstring says."""
+    from termdaw_tpu_torch import bench
+
+    sidecar = tmp / "bench_full.json"
+    site = fixtures.block_site(tmp / "bench_site")
+    path = os.pathsep.join(p for p in (site, os.environ.get("PYTHONPATH"))
+                           if p)
+    env = {**os.environ, "BENCH_SIDECAR": str(sidecar),
+           "BENCH_DEADLINE_S": "480", "PYTHONPATH": path}
+    t0 = time.perf_counter()
+    proc = subprocess.run(fixtures.alone_argv("termdaw_tpu_torch.bench"),
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=540, env=env)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"the bench exited {proc.returncode} with {len(lines)} stdout "
+          f"lines: {proc.stdout[-1500:]} {proc.stderr[-2500:]}")
+    check(len(lines[0]) <= bench.MAX_LINE_CHARS,
+          f"the bench line has {len(lines[0])} characters")
+    line = json.loads(lines[0])
+    extra = line["extra"]
+    check(line["metric"] == bench.METRIC and line["unit"] == bench.UNIT
+          and line["value"] > 0 and "error" not in line,
+          f"the bench line: {lines[0]}")
+    full = json.loads(sidecar.read_text())["extra"]
+    failed = [k for k in full if k.endswith("_error")]
+    check(not failed, f"the bench's {failed}: {[full[k] for k in failed]}")
+    for cfg in bench.BUILDERS:
+        for k in ("chip_xrt", "e2e_xrt"):
+            check(extra.get(f"{cfg}_{k}", 0) > 0,
+                  f"the bench line has no {cfg}_{k}")
+        for k in ("chip_p50_ms", "e2e_p50_ms"):
+            check(full.get(f"{cfg}_{k}", 0) > 0,
+                  f"the bench measured no {cfg}_{k}")
+        check(isinstance(full.get(f"{cfg}_util"), dict) and
+              full[f"{cfg}_util"]["gflops_per_s"] > 0,
+              f"the bench gave {cfg} no roofline")
+    for k in ("stream_latency_p50_ms", "stream_latency_p95_ms",
+              "stream_latency_ok", "playback_gen_per_wall",
+              "playback_realtime_ok", "playback_max_deficit_ms",
+              "playback_deficit_ok"):
+        check(k in extra, f"the bench line has no {k}")
+    check(full["device"]["device"] == "cuda",
+          f"the bench ran on {full['device']}")
+    procs, blocked = fixtures.block_log(site)
+    check(len(procs) >= 2 and not blocked and
+          sum("--child" in argv for argv in procs.values()) == 1,
+          f"the bench's processes: {len(procs)} logged the block "
+          f"({[a[-4:] for a in procs.values()]}), blocked imports {blocked}")
+    return {"wall_s": wall, "line_chars": len(lines[0]), "line": line,
+            "sidecar_extra": full}
+
+
+def wide_configs(fixtures, tmp: Path, cuda, cpu, reset_counts) -> dict:
+    """Phase 24 (b): c6 and c7 (bench.BUILDERS) rendered on the card from
+    fresh States, the wrapper counts set to 0 just before: every window a
+    replay, the voice mix launched, the WAV within phase 5's bound of the
+    port's CPU render. Then the voice mix at each one's shape, its first
+    window's arguments: bit-exact to the plain version, timed beside its
+    bound."""
+    from termdaw_tpu_torch import bench, kernels
+    from termdaw_tpu_torch.ops import voices
+
+    wide = {}
+    for cfg, name in (("c6", "c6_stream256"), ("c7", "c7_stream1024")):
+        d = tmp / cfg
+        reset_counts()
+        st = bench.build(name, d, SECONDS, cuda)
+        st.render()
+        torch.cuda.synchronize()
+        gpu, rate = fixtures.read_wav_ints(d / "mix.wav")
+        replays = check_replays(st, cfg)
+        check_wrapper_counts(st.compiled, {"voice_mix": voices.launches},
+                             cfg)
+        n = path_launches(st.compiled).get("voice_mix", 0)
+        check(n > 0, f"the {cfg} render launched no voice-mix kernel")
+        bench.build(name, d, SECONDS, cpu).render()
+        cpu_ints, _ = fixtures.read_wav_ints(d / "mix.wav")
+        a = window_mix_args(bench.build(name, d, SECONDS, cuda), C5_NB)
+        P = a[1].shape[1]
+        check(P > 32, f"{cfg}'s voice mix has {P} slots")
+        n0 = voices.launches
+        got = voices.voice_mix_stereo(*a, C5_NB, BL)
+        torch.cuda.synchronize()
+        check(voices.launches == n0 + 1, f"{cfg}: no launch counted")
+        want = voices.voice_mix_stereo_plain(*a, C5_NB, BL)
+        err = float((got - want).abs().max())
+        check(bool(torch.equal(got, want)), f"{cfg}'s voice mix vs plain "
+              f"not bit-exact (max |diff| {err})")
+        plan = kernels.voice_mix_plan(a[0].shape[1], C5_NB, BL)
+        t = dict(P=P, lpad=a[0].shape[1], resident=plan.resident,
+                 **timed(lambda: voices.voice_mix_stereo(*a, C5_NB, BL),
+                         lambda: voices.voice_mix_stereo_plain(*a, C5_NB, BL),
+                         voices.voice_mix_stereo_work(*a, C5_NB, BL)))
+        wide[cfg] = {"launches": n, "max_abs_err": err, **replays,
+                     "fused_slots": [c["pf"] for k, c in
+                                     st.compiled.bake_caps.items()
+                                     if k.startswith("fused")],
+                     "voice_mix": t,
+                     **compare(cfg, gpu, cpu_ints, 32, rate, SR,
+                               2 * st.cs * BL)}
+    return wide
+
+
 def main() -> int:
     # 1. environment
     if not torch.cuda.is_available():
@@ -2213,6 +2371,16 @@ def main() -> int:
         emit("roofline", card=card, **rl,
              seconds=time.perf_counter() - t23)
 
+        # 24. the benchmark harness, then c6 and c7 on the card against
+        # the CPU and the voice mix at their shapes
+        t24 = time.perf_counter()
+        emit("bench", card=card, **bench_run(fixtures, tmp))
+        wide = wide_configs(fixtures, tmp, cuda, cpu, reset_counts)
+        for cfg, w in wide.items():
+            per_kernel[f"voice_mix_stereo@{cfg}"] = w["voice_mix"]
+        emit("bench_wide", card=card, seconds=time.perf_counter() - t24,
+             **wide)
+
     print(card, flush=True)
     # launches: what each kernel's main-path render ran on the card (its
     # programs' replays and warm-ups, path_launches): c5's for the voice
@@ -2231,6 +2399,11 @@ def main() -> int:
         # is phase 13's at the eq3 stage shape [384,000, 4]
         ("biquad_seq", "biquad_seq", "termdaw_tpu/ops/filters.py:384",
          bq_launches, bq_err),
+        # the voice mix at the wide configs' shapes (phase 24): c6's and
+        # c7's renders, their first window's arguments
+        *((f"voice_mix_stereo@{cfg}", "voice_mix",
+           "termdaw_tpu/ops/pallas_voices.py:50", w["launches"],
+           w["max_abs_err"]) for cfg, w in wide.items()),
     )
     print(json.dumps({"kernels": [{
         "name": name,

@@ -17,11 +17,15 @@ loaded by either package:
 * c5 (bench.py:485-528): n streamed SampleMulti tracks over one hit
   sample recorded at 96 kHz (resampled on import) -> Normalize, 32-bit.
 
-All randomness comes from numpy generators with fixed seeds.
+At bench.py's arguments each writer makes the files of bench.py's build
+function byte for byte (termdaw_tpu_torch/bench.py's BUILDERS; c6 and c7 are c5
+with 256 and 1024 tracks). All randomness comes from numpy generators with
+fixed seeds.
 """
 
 from __future__ import annotations
 
+import json
 import sys
 import wave
 from pathlib import Path
@@ -50,9 +54,10 @@ def drum(path, sr, dur, freq, decay, noise=0.0, seed=0) -> None:
     write_wav(path, np.stack([body, body], 1), sr, bits=16)
 
 
-def _toml(d: Path, bl: int, sr: int) -> None:
+def _toml(d: Path, bl: int, sr: int, project: str = "") -> None:
+    head = f'[project]\nname = "{project}"\n' if project else ""
     (d / "project.toml").write_text(
-        f'[settings]\nmain = "project.lua"\nbuffer_length = {bl}\n'
+        f'{head}[settings]\nmain = "project.lua"\nbuffer_length = {bl}\n'
         f"project_samplerate = {sr}\n"
     )
 
@@ -246,15 +251,17 @@ connect("hat", "sum");
 connect("bass", "duck");
 connect("chords", "duck");
 connect("duck", "band");
+
 connect("band", "fxverb");
 connect("fxverb", "fxcomp");
 connect("fxcomp", "fxeq");
 connect("fxeq", "fxdel");
+
 connect("fxdel", "sum");
 {streams}
 set_output("sum");
 """)
-    _toml(d, bl, sr)
+    _toml(d, bl, sr, project="demo")
 
 
 def write_c5_project(d: Path, length_sec: float, sr: int, bl: int,
@@ -361,3 +368,41 @@ def alone_argv(module: str, *args: str) -> list[str]:
     nothing of JAX or the JAX package importable, and fails if any of it
     was loaded all the same. Run it from the repo root."""
     return [sys.executable, "-c", _ALONE, module, *args]
+
+
+# A sitecustomize that every python process started with it on PYTHONPATH
+# runs first: it logs the process (pid and argv), then blocks jax and the
+# JAX package, logging every attempt. Children inherit PYTHONPATH, so a
+# process tree is covered where alone_argv covers only its root.
+_BLOCK_SITE = """
+import json, os, sys
+_LOG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "block.log")
+with open(_LOG, "a") as f:
+    f.write(f"installed {os.getpid()} {json.dumps(sys.orig_argv)}\\n")
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "termdaw_tpu"):
+            with open(_LOG, "a") as f:
+                f.write(f"blocked {os.getpid()} {name}\\n")
+            raise ModuleNotFoundError(f"import of {name} blocked")
+sys.meta_path.insert(0, _Block())
+"""
+
+
+def block_site(d: Path) -> str:
+    """Write the blocking sitecustomize into d; returns d, to put first on
+    the PYTHONPATH of the process tree to check (read with block_log)."""
+    d = Path(d)
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "sitecustomize.py").write_text(_BLOCK_SITE)
+    return str(d)
+
+
+def block_log(d: Path) -> tuple[dict, list]:
+    """What block_site(d)'s processes logged: {pid: argv} of every process
+    that installed the block, and every blocked import attempt."""
+    log = Path(d) / "block.log"
+    lines = log.read_text().splitlines() if log.exists() else []
+    procs = {ln.split(" ", 2)[1]: json.loads(ln.split(" ", 2)[2])
+             for ln in lines if ln.startswith("installed ")}
+    return procs, [ln for ln in lines if ln.startswith("blocked ")]

@@ -108,6 +108,20 @@ def test_kernel_ragged_block_lengths(cuda, bl, L, tight):
     _mix_on_card((padded, begins, al, ar), nb, bl)
 
 
+@pytest.mark.parametrize("size", ["c5", "long"])
+def test_kernel_at_c7_width_matches_plain_on_card(cuda, size):
+    """c7's 128 slots a block (four 32-slot chunks of a warp's slot table)
+    over a 375-block window, in both regimes of kernels.voice_mix_plan:
+    the 0.08 s hit staged in shared memory, a 30 s sample streamed.
+    Bit-exact."""
+    rng = np.random.default_rng(128)
+    nb, bl, P = 375, 1024, 128
+    args = _mix_args(cuda, rng, nb, bl, P, _LPADS[size] - 2 * bl - 256)
+    plan = kernels.voice_mix_plan(args[0].shape[1], nb, bl)
+    assert plan.resident == (size == "c5")
+    _mix_on_card(args, nb, bl)
+
+
 def test_small_c5_render_on_card_matches_cpu(cuda, tmp_path):
     packets = write_c5_project(tmp_path, 2.0, 8000, 256, n_tracks=8,
                                hit_sr=16000, bd=16)
