@@ -226,6 +226,22 @@ phase 12 gates those of a replayed c4 render against its device rows.
    window, recorded from an eager window: 64 and 128 slots at 40 s, c7's
    four 32-slot chunks) bit-exact to its plain version and timed beside
    its bound (at 128 slots the operations bound it).
+25. parity with the float64 per-frame oracle (tests/oracle.py):
+   `python -m termdaw_tpu_torch.tools.parity_report` with --device cuda
+   --full with --device cuda and with --device cpu, in two children
+   started together with jax and the JAX package blocked: its five toy
+   configs (4 kHz, 128-frame blocks, 24 blocks), config1 at 48 kHz / 1024
+   over 40 s and config3 at 48 kHz / 1024 over 564 blocks. Gated: both
+   exit 0; every entry within its gate (parity_report.GATES, the
+   tolerances of tests/test_torch_oracle.py: config1 2e-4, config2 1e-3,
+   config3 2e-3, config4's 8- against 3-block invariance 1e-4, config5
+   2e-3 on the fused voice-mix path) and under its drift ceiling
+   (parity_report.DRIFT_CEILING_DBFS, 10 dB over its reading); the card's
+   max |err| within PARITY_CARD_VS_CPU times the CPU's for each entry; on
+   the card config3 (both shapes) launched the affine scan, config4 the
+   affine and max-decay scans, config5 the voice mix. Printed: each
+   entry's dBFS figures, race frames, max |err| and the card's launches,
+   card and CPU side by side.
 
 Then the card line, the kernels line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -277,6 +293,16 @@ NATIVE_RENDERS = 4           # phase 20: renders each way, one cold
 EXAMPLES = ("project", "sample-project", "neg-adsr-env", "synth-adsr-fx",
             "generative")
 PIPE_SECONDS, PIPE_STREAMS = 12, "kick,snare,hihat,ride,bass,chords"
+# phase 25: the kernels each card entry of the parity report (run with
+# --full, all seven entries) must launch, and how many times the CPU's
+# max |err| the card's may be (the readings differ by 2 dB at most)
+PARITY_KERNELS = {"config3_synths_bandpass": ("affine_scan",),
+                  "config4_fx_chain_invariance": ("affine_scan",
+                                                  "max_decay_scan"),
+                  "config5_multitrack_fused": ("voice_mix",),
+                  "config3_full_48k": ("affine_scan",)}
+PARITY_CARD_VS_CPU = 10.0
+PARITY_TIMEOUT_S = 300
 # torch.profiler now and then returns a trace without device rows: a
 # trace is taken again up to this many times, and the empty ones counted
 PROFILE_TRIES = 5
@@ -1580,6 +1606,67 @@ def wide_configs(fixtures, tmp: Path, cuda, cpu, reset_counts) -> dict:
     return wide
 
 
+def parity_run(fixtures, tmp: Path) -> dict:
+    """Phase 25: the parity report (tools/parity_report.py --full) in two
+    children with jax and the JAX package blocked, one on the card and one
+    on the CPU, started together; both exit 0, and every entry of each is
+    within its gate and under its drift ceiling (parity_report.
+    gate_failures; config5 on the fused path). The card's max |err| must
+    lie within PARITY_CARD_VS_CPU times the CPU's, entry by entry, and
+    the card's entries must have launched their kernels (PARITY_KERNELS).
+    Returns the two side by side, entry by entry."""
+    from termdaw_tpu_torch.tools import parity_report
+
+    names = [n for n, _, _ in parity_report.TOY + parity_report.FULL]
+    procs = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp / f"parity_{dev}.json"
+        procs[dev] = (out, subprocess.Popen(
+            fixtures.alone_argv(
+                "termdaw_tpu_torch.tools.parity_report", "--full",
+                "--device", dev, "--out", str(out)),
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    reports, ended = {}, {}
+    try:
+        for dev, (out, proc) in procs.items():
+            ended[dev] = proc.communicate(timeout=PARITY_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        check(False, f"the parity report took over {PARITY_TIMEOUT_S} s")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for dev, (out, proc) in procs.items():
+        stdout, stderr = ended[dev]
+        check(proc.returncode == 0 and out.exists(),
+              f"the parity report on {dev} exited {proc.returncode}: "
+              f"{stdout[-1500:]} {stderr[-2500:]}")
+        reports[dev] = json.loads(out.read_text())
+        bad = parity_report.gate_failures(reports[dev], names)
+        check(not bad, f"the parity report on {dev}: {bad}")
+    card_rep, cpu_rep = reports["cuda"], reports["cpu"]
+    for name in names:
+        card_err, cpu_err = card_rep[name]["max_err"], cpu_rep[name]["max_err"]
+        check(card_err <= PARITY_CARD_VS_CPU * cpu_err,
+              f"parity {name}: the card's max |err| {card_err} is over "
+              f"{PARITY_CARD_VS_CPU} times the CPU's {cpu_err}")
+    for name, need in PARITY_KERNELS.items():
+        got = card_rep[name]["launches"]
+        check(all(got[k] > 0 for k in need),
+              f"parity {name} on the card launched {got}, needs {need}")
+    keys = ("max_err_dbfs", "rms_err_dbfs", "sustained_max_err_dbfs",
+            "isolated_boundary_race_frames", "max_err")
+    return {"device": card_rep["device"], "gates": {
+        n: parity_report.GATES[n] for n in names}, "drift_ceiling_dbfs": {
+        n: parity_report.DRIFT_CEILING_DBFS[n] for n in names}, "entries": {
+        n: {dev: {k: reports[dev][n][k] for k in keys}
+            | {k: reports[dev][n][k] for k in ("launches", "fused_kernel")
+               if k in reports[dev][n]}
+            for dev in ("cuda", "cpu")} for n in names}}
+
+
 def main() -> int:
     # 1. environment
     if not torch.cuda.is_available():
@@ -2380,6 +2467,11 @@ def main() -> int:
             per_kernel[f"voice_mix_stereo@{cfg}"] = w["voice_mix"]
         emit("bench_wide", card=card, seconds=time.perf_counter() - t24,
              **wide)
+
+        # 25. the parity report against the float64 oracle, card and CPU
+        t25 = time.perf_counter()
+        emit("parity", card=card, **parity_run(fixtures, tmp),
+             seconds=time.perf_counter() - t25)
 
     print(card, flush=True)
     # launches: what each kernel's main-path render ran on the card (its
