@@ -242,6 +242,21 @@ phase 12 gates those of a replayed c4 render against its device rows.
    affine and max-decay scans, config5 the voice mix. Printed: each
    entry's dBFS figures, race frames, max |err| and the card's launches,
    card and CPU side by side.
+26. the reference's behaviour suites (tests/test_engine.py and the eight
+   others, mirrored in tests/test_torch_ref_*.py): (a) c4 at 40 s twice,
+   one State with TERMDAW_EXACT_BIQUAD=1 and one without, each rendered
+   alone, then in two rounds two fresh States rendered from two threads
+   at once after the program cache is cleared (both capture together):
+   each WAV bit-identical to its lane's render alone, the exact lane's
+   programs holding csrc/biquad_seq.cu, the cascade's the complex scan;
+   (b) 30 feed/render cycles on c5 (one event fed to a stream each): every
+   render finite, the chains within their budget, a capture only in the
+   first cycle or where the bake caps grew, and the reserved memory over
+   cycles 11-30 at or under its most over cycles 1-10 plus what later
+   captures added; (c) `python -m pytest -m cuda` over the mirrors in a
+   child with jax and the JAX package blocked: exit 0, every collected
+   card case passed, none skipped. Printed: the walls, captures and
+   capture ms, the reserved MB a cycle, the pytest counts and wall.
 
 Then the card line, the kernels line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -303,6 +318,9 @@ PARITY_KERNELS = {"config3_synths_bandpass": ("affine_scan",),
                   "config3_full_48k": ("affine_scan",)}
 PARITY_CARD_VS_CPU = 10.0
 PARITY_TIMEOUT_S = 300
+# phase 26: the concurrent renders' rounds, the feed/render cycles, and the
+# time the mirrored suites' card cases may take in their child
+REF_ROUNDS, REF_CYCLES, REF_TESTS_TIMEOUT_S = 2, 30, 600
 # torch.profiler now and then returns a trace without device rows: a
 # trace is taken again up to this many times, and the empty ones counted
 PROFILE_TRIES = 5
@@ -1667,6 +1685,212 @@ def parity_run(fixtures, tmp: Path) -> dict:
             for dev in ("cuda", "cpu")} for n in names}}
 
 
+def concurrent_renders(fixtures, tmp: Path, cuda) -> dict:
+    """Phase 26 (a): c4 at the bench's shape twice, the exact biquad lane
+    on one (TERMDAW_EXACT_BIQUAD=1, read at the refresh) and the pole
+    cascade on the other. Each lane is rendered alone on a fresh State;
+    then, in each of REF_ROUNDS rounds, two fresh States render from two
+    threads at once after the program cache is cleared, so that both
+    warm up and capture their programs together. Each WAV must be
+    bit-identical to its lane's isolated render, every window a replay of
+    a captured program, the exact lane's programs holding
+    csrc/biquad_seq.cu and no complex scan, the cascade's the reverse."""
+    import threading
+
+    from termdaw_tpu_torch.graph import compile as gcompile
+
+    lanes = {"exact": "1", "cascade": "0"}
+    need = {"exact": ("biquad_seq", "complex_scan"),
+            "cascade": ("complex_scan", "biquad_seq")}
+    dirs = {lane: tmp / f"c4_{lane}" for lane in lanes}
+    for d in dirs.values():
+        fixtures.write_c4_project(d, SECONDS, SR, BL)
+
+    def load(lane):
+        old = os.environ.get("TERMDAW_EXACT_BIQUAD")
+        os.environ["TERMDAW_EXACT_BIQUAD"] = lanes[lane]
+        try:
+            st = fixtures.load_state(dirs[lane], cuda)
+        finally:
+            if old is None:
+                del os.environ["TERMDAW_EXACT_BIQUAD"]
+            else:
+                os.environ["TERMDAW_EXACT_BIQUAD"] = old
+        check(st.compiled.exact_biquad is (lane == "exact"),
+              f"c4 {lane}: the lane was not read at the refresh")
+        return st
+
+    def render(st, lane, what):
+        t0 = time.perf_counter()
+        st.render()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_replays(st, f"c4 {lane} ({what})")
+        cg = st.compiled
+        progs = cg.programs()
+        ks = set().union(*(p.kernels for p in progs))
+        has, lacks = need[lane]
+        check(has in ks and lacks not in ks,
+              f"c4 {lane} ({what}): its programs captured {sorted(ks)}")
+        wav, _ = fixtures.read_wav_ints(st._resolve(st.output_file))
+        return wav, {"wall_s": wall, "captures": cg.captures,
+                     "capture_ms": [p.capture_ms for p in progs],
+                     "kernels_captured": sorted(ks)}
+
+    alone, out = {}, {"isolated": {}, "rounds": []}
+    for lane in lanes:
+        alone[lane], out["isolated"][lane] = render(load(lane), lane,
+                                                    "alone")
+    for rnd in range(REF_ROUNDS):
+        sts = {lane: load(lane) for lane in lanes}
+        gcompile._PROGRAM_CACHE.clear()
+        barrier = threading.Barrier(len(sts))
+        got, errors = {}, []
+
+        def run(lane):
+            try:
+                barrier.wait()
+                got[lane] = render(sts[lane], lane, f"round {rnd + 1}")
+            except BaseException as e:  # raised below, in the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(lane,))
+                   for lane in sts]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        check(not any(t.is_alive() for t in threads),
+              f"round {rnd + 1}: a render thread is still running")
+        if errors:
+            raise errors[0]
+        rec = {"wall_s": time.perf_counter() - t0}
+        for lane in lanes:
+            wav, info = got[lane]
+            check(np.array_equal(wav, alone[lane]),
+                  f"round {rnd + 1}: c4 {lane} rendered beside the other "
+                  f"lane is not bit-identical to its render alone (max "
+                  f"|diff| {int(np.max(np.abs(wav - alone[lane])))})")
+            rec[lane] = info
+        out["rounds"].append(rec)
+    out["bit_identical"] = True
+    return out
+
+
+def feed_render_cycles(fixtures, tmp: Path, cuda) -> dict:
+    """Phase 26 (b): REF_CYCLES cycles on c5 at its stream shape (64
+    streamed tracks, 40 s at 48 kHz / 1024), each feeding one event to a
+    stream (a content-version bump: the chains go stale) and rendering.
+    Gated: every render finite; the chains within their byte budget and
+    record limit; a program captured in the first cycle and after it only
+    where the bake caps grew; every program captured; the card's reserved
+    memory over cycles 11-30 at or under its most over cycles 1-10, plus
+    the pool bytes of programs captured after cycle 10."""
+    from termdaw_tpu_torch.fileio.packets import PacketDecoder, encode_events
+
+    d = tmp / "c5_cycles"
+    packets = fixtures.write_c5_project(d, SECONDS, SR, BL, n_tracks=64)
+    st = fixtures.load_state(d, cuda, packets)
+    cg = st.compiled
+    rng = np.random.default_rng(17)
+    reserved, walls, captures, grew = [], [], [], []
+    made_by_10: set = set()
+    for cycle in range(REF_CYCLES):
+        ev = np.array([[0.0, float(rng.uniform(0.1, 0.95 * SECONDS)), 36.0,
+                        0.8]], np.float32)
+        st.fb.append_streams(PacketDecoder().feed(
+            encode_events(f"s{cycle % 64}", ev)))
+        caps = {k: dict(v) for k, v in cg.bake_caps.items()}
+        before = cg.captures
+        st.fb.set_time(cg.get_time())
+        t0 = time.perf_counter()
+        chunks = st.render_device()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        check(all(bool(torch.isfinite(c.float()).all()) for c in chunks),
+              f"cycle {cycle + 1}: a render that is not finite")
+        cg.set_time(0)
+        check(len(cg._recorded) <= cg._REC_MAX
+              and 0 <= cg._prebake_used <= cg._prebake_budget,
+              f"cycle {cycle + 1}: chains over their budget")
+        if cycle == 0:
+            check(cg.captures >= 1, "the first cycle captured nothing")
+        elif cg.captures != before:
+            check(cg.bake_caps != caps, f"cycle {cycle + 1} captured a "
+                  "program with the bake caps unchanged")
+            grew.append(cycle + 1)
+        if cycle == 9:
+            made_by_10 = set(cg.programs())
+        captures.append(cg.captures)
+        reserved.append(torch.cuda.memory_reserved(cuda))
+    check_replays(st, "c5 feed/render cycles")
+    progs = cg.programs()
+    late = sum(p.pool_bytes for p in progs if p not in made_by_10)
+    check(max(reserved[10:]) <= max(reserved[:10]) + late,
+          f"reserved memory grew over cycles 11-30: {reserved}")
+    return {"cycles": REF_CYCLES, "captures_after_each": captures,
+            "captured_in_cycles_where_caps_grew": grew,
+            "reserved_mb": [r / 1e6 for r in reserved],
+            "late_pool_mb": late / 1e6,
+            "render_ms_median": statistics.median(walls),
+            "render_ms_max": max(walls),
+            "chain_mb": cg._prebake_used / 1e6,
+            "chain_budget_mb": cg._prebake_budget / 1e6,
+            "recorded_chains": len(cg._recorded)}
+
+
+def ref_suites_run(fixtures, tmp: Path) -> dict:
+    """Phase 26 (c): the card cases of the mirrored reference suites,
+    `python -m pytest -m cuda tests/test_torch_ref_*.py` (all but the
+    parity file, which imports both packages) in a child with jax and
+    the JAX package blocked in each of its processes. Gated: exit 0, no
+    blocked import, and as many passed as the same files' card cases
+    collected, none skipped, failed or in error."""
+    import xml.etree.ElementTree as ET
+
+    files = [str(p.relative_to(ROOT)) for p in
+             sorted((ROOT / "tests").glob("test_torch_ref_*.py"))
+             if p.name != "test_torch_ref_parity.py"]
+    blk = fixtures.block_site(tmp / "ref_block")
+    # the suite's session guard probes jax when a sitecustomize is on
+    # PYTHONPATH; here jax is blocked on purpose
+    env = dict(os.environ, PYTHONPATH=blk, TERMDAW_SKIP_BACKEND_GUARD="1")
+    base = [sys.executable, "-m", "pytest", "-m", "cuda", "-p",
+            "no:cacheprovider", *files]
+    try:
+        col = subprocess.run(base + ["--collect-only", "-q"], cwd=ROOT,
+                             env=env, capture_output=True, text=True,
+                             timeout=300)
+        expected = sum("::" in ln for ln in col.stdout.splitlines())
+        check(col.returncode == 0 and expected > 0,
+              f"collecting the mirrored suites' card cases: "
+              f"{col.stdout[-1500:]} {col.stderr[-1500:]}")
+        xml = tmp / "ref_cuda.xml"
+        t0 = time.perf_counter()
+        run = subprocess.run(base + ["-q", "-rfEs", f"--junitxml={xml}"],
+                             cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=REF_TESTS_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    except subprocess.TimeoutExpired as e:
+        check(False, f"the mirrored suites' card cases took over "
+              f"{e.timeout} s")
+    root = ET.parse(xml).getroot()
+    suite = root if root.tag == "testsuite" else root.find("testsuite")
+    n = {k: int(suite.get(k, 0)) for k in ("tests", "failures", "errors",
+                                           "skipped")}
+    passed = n["tests"] - n["failures"] - n["errors"] - n["skipped"]
+    _, blocked = fixtures.block_log(blk)
+    check(run.returncode == 0 and passed == expected and n["skipped"] == 0
+          and not blocked,
+          f"the mirrored suites on the card: rc {run.returncode}, "
+          f"{passed} of {expected} passed, {n}, blocked {blocked[:3]}: "
+          f"{run.stdout[-3000:]}")
+    return {"files": files, "expected": expected, "passed": passed,
+            **{k: n[k] for k in ("failures", "errors", "skipped")},
+            "wall_s": wall, "summary": run.stdout.strip().splitlines()[-1]}
+
+
 def main() -> int:
     # 1. environment
     if not torch.cuda.is_available():
@@ -2472,6 +2696,17 @@ def main() -> int:
         t25 = time.perf_counter()
         emit("parity", card=card, **parity_run(fixtures, tmp),
              seconds=time.perf_counter() - t25)
+
+        # 26. the reference's behaviour suites on the card: concurrent
+        # first renders of the two eq3 lanes, feed/render cycles, and the
+        # mirrored suites' card cases
+        t26 = time.perf_counter()
+        emit("concurrent_renders", card=card,
+             **concurrent_renders(fixtures, tmp, cuda))
+        emit("feed_render_cycles", card=card,
+             **feed_render_cycles(fixtures, tmp, cuda))
+        emit("ref_suites", card=card, **ref_suites_run(fixtures, tmp),
+             seconds=time.perf_counter() - t26)
 
     print(card, flush=True)
     # launches: what each kernel's main-path render ran on the card (its

@@ -49,7 +49,11 @@ instead of as a jitted XLA program:
   its bake into those buffers, writes `t0`, replays and clones the audio
   out. A graph's programs capture into one memory pool, since their
   replays are serialized on one stream. A capture that fails raises,
-  naming the vertex it was in; nothing falls back to eager. On the CPU an
+  naming the vertex it was in; nothing falls back to eager. Graphs may
+  render from several threads at once: one lock (`_PROGRAM_LOCK`) covers
+  the cache's reads and writes and each warm-up and capture, which run on
+  the card's one capture stream; other threads' uploads and replays go on
+  beside a capture. On the CPU an
   entry runs the eager program over the same buffers. Deviation: the
   reference keys by a spec that compares equal across refreshes; here the
   graph's serial number stands for it, so entries never outlive their
@@ -99,6 +103,7 @@ import dataclasses
 import gc
 import itertools
 import os
+import threading
 import time
 from dataclasses import dataclass, replace
 from typing import Any
@@ -125,19 +130,25 @@ _PROGRAM_CACHE_CAP = max(
     8, int(os.environ.get("TERMDAW_PROGRAM_CACHE", "128") or "128")
 )
 _GRAPH_SERIALS = itertools.count()
+# held over every read-modify-write of the cache and over each capture
+# (its warm-up included): graphs render from several threads, the cache
+# is shared, and a card has one capture stream
+_PROGRAM_LOCK = threading.RLock()
 
 
 def _cache_get(key):
-    fn = _PROGRAM_CACHE.get(key)
-    if fn is not None:
-        _PROGRAM_CACHE[key] = _PROGRAM_CACHE.pop(key)  # LRU: move to end
-    return fn
+    with _PROGRAM_LOCK:
+        fn = _PROGRAM_CACHE.get(key)
+        if fn is not None:
+            _PROGRAM_CACHE[key] = _PROGRAM_CACHE.pop(key)  # LRU: move to end
+        return fn
 
 
 def _cache_put(key, fn):
-    _PROGRAM_CACHE[key] = fn
-    while len(_PROGRAM_CACHE) > _PROGRAM_CACHE_CAP:
-        _PROGRAM_CACHE.pop(next(iter(_PROGRAM_CACHE)))
+    with _PROGRAM_LOCK:
+        _PROGRAM_CACHE[key] = fn
+        while len(_PROGRAM_CACHE) > _PROGRAM_CACHE_CAP:
+            _PROGRAM_CACHE.pop(next(iter(_PROGRAM_CACHE)))
 
 
 def _kernel_counts() -> dict[str, int]:
@@ -218,7 +229,9 @@ class _WindowProgram:
         capture. A failure raises with the vertex the program was at. The
         warm-up's collectives ran and stay counted; the capture's did not
         run: they are taken off the mesh's counts and kept as
-        `collectives`."""
+        `collectives`. The caller holds _PROGRAM_LOCK: captures share the
+        card's capture stream and switch the collector, so they never
+        overlap."""
         from .. import kernels
 
         kernels.load_all(dev)  # nothing may be built or loaded in capture
@@ -288,7 +301,8 @@ class _WindowProgram:
                 self.collectives = mesh.collective_calls - calls
         else:
             if self.graph is None:
-                self._capture(self.ints.device)
+                with _PROGRAM_LOCK:
+                    self._capture(self.ints.device)
             self.graph.replay()
             if mesh is not None:
                 mesh.collective_calls += self.collectives
@@ -1086,13 +1100,15 @@ class CompiledGraph:
     def _drop_programs(self, which) -> None:
         """Drop this graph's program-cache entries whose key `which`
         selects."""
-        for key in [k for k, p in _PROGRAM_CACHE.items()
-                    if p.cg is self and which(k)]:
-            del _PROGRAM_CACHE[key]
+        with _PROGRAM_LOCK:
+            for key in [k for k, p in _PROGRAM_CACHE.items()
+                        if p.cg is self and which(k)]:
+                del _PROGRAM_CACHE[key]
 
     def programs(self) -> list[_WindowProgram]:
         """This graph's entries of the program cache, oldest use first."""
-        return [p for p in _PROGRAM_CACHE.values() if p.cg is self]
+        with _PROGRAM_LOCK:
+            return [p for p in _PROGRAM_CACHE.values() if p.cg is self]
 
     def load_reference_state(
         self, num_state: dict[str, np.ndarray], carries: dict, t: int
@@ -1698,11 +1714,12 @@ class CompiledGraph:
         else:
             key = (self.serial, "sharded", nb * mesh.size, is_scan,
                    mesh.size, layout, ttab_len)
-        fn = _cache_get(key)
-        if fn is None:
-            fn = _WindowProgram(self, nb, is_scan, layout, mesh)
-            _cache_put(key, fn)
-            self.captures += 1
+        with _PROGRAM_LOCK:
+            fn = _cache_get(key)
+            if fn is None:
+                fn = _WindowProgram(self, nb, is_scan, layout, mesh)
+                _cache_put(key, fn)
+                self.captures += 1
         return fn
 
     def _run_eager(self, ints: torch.Tensor, floats: torch.Tensor, layout,

@@ -142,7 +142,9 @@ def _assert_tables_equal(got, want):
 def test_voice_cap_steals_and_pins(tmp_path, monkeypatch, cap):
     """A lone SampleMulti, a Synth and a DebugSine (8 overlapping notes):
     under TERMDAW_VOICE_CAP=2 every voice table is at most 2 wide and the
-    port's tables equal the reference's; without it they are wider."""
+    port's tables equal the reference's; without it they are wider. The
+    mirror of tests/test_bake_caps.py::TestStableLayouts::
+    test_voice_cap_steals_and_pins."""
     if cap:
         monkeypatch.setenv("TERMDAW_VOICE_CAP", cap)
     packets = _bursty_project(tmp_path / "p", n_tracks=1, notes=True)
@@ -182,7 +184,9 @@ def _fused_member_counts(tables) -> int:
 def test_voice_cap_steals_on_fused_path(tmp_path, monkeypatch, cap):
     """The fused group's merged voice table is capped per member vertex
     with oldest-voice steal, as the reference's; uncapped, some (block,
-    member) cell holds more than 2 voices."""
+    member) cell holds more than 2 voices. The mirror of
+    tests/test_bake_caps.py::TestStableLayouts::
+    test_voice_cap_steals_on_fused_path."""
     if cap:
         monkeypatch.setenv("TERMDAW_VOICE_CAP", cap)
     packets = _bursty_project(tmp_path / "p")

@@ -771,6 +771,62 @@ def test_capture_with_a_pageable_upload_raises_on_card(cuda, tmp_path,
     assert fresh.compiled.replays > 0
 
 
+def test_capture_beside_another_threads_uploads_on_card(cuda, tmp_path):
+    """One thread's first c4 render captures its program while another
+    thread, all along, uploads from pageable host memory into fresh
+    allocations (the caching allocator has to cudaMalloc new
+    segments) and replays its own graph's windows: neither thread fails,
+    and each one's audio equals its render alone."""
+    import threading
+
+    _SMALL["c4"](tmp_path / "a")
+    _SMALL["c5"](tmp_path / "b")
+    alone = torch.cat(load_state(tmp_path / "a", cuda).render_device())
+    st_b = load_state(tmp_path / "b", cuda)
+    cg_b = st_b.compiled
+
+    def window_b():
+        cg_b.set_time(0)
+        st_b.fb.set_time(0)
+        return cg_b.render_window(st_b.fb, 4).cpu()
+
+    want_b = window_b()  # captures b's program
+    st_a = load_state(tmp_path / "a", cuda)
+    done, errors, uploads = threading.Event(), [], [0]
+
+    def churn():
+        kept = []
+        try:
+            while not done.is_set():
+                # 8 MB and a little more each time, all kept: a new
+                # segment from cudaMalloc every other upload
+                host = np.ones((1 << 21) + 1024 * len(kept), np.float32)
+                kept.append(torch.from_numpy(host).to(cuda))
+                assert float(kept[-1][-1]) == 1.0
+                assert torch.equal(window_b(), want_b)
+                uploads[0] += 1
+                if len(kept) == 512:
+                    kept.clear()
+                    torch.cuda.synchronize()
+        except BaseException as e:  # raised below, in the test's thread
+            errors.append(e)
+
+    t = threading.Thread(target=churn)
+    t.start()
+    try:
+        got = torch.cat(st_a.render_device())
+    finally:
+        done.set()
+        t.join(timeout=60)
+    assert not t.is_alive()
+    if errors:
+        raise errors[0]
+    assert uploads[0] > 0
+    assert st_a.compiled.captures >= 1
+    assert all(p.graph is not None for p in st_a.compiled.programs())
+    assert torch.equal(got, alone)
+
+
 def test_a_dropped_program_is_not_freed_inside_a_capture_on_card(
         cuda, tmp_path):
     """A dropped program waits in a reference cycle for the collector; a

@@ -115,6 +115,55 @@ def test_evicted_programs_release_their_graph(tmp_path, monkeypatch):
     assert dead >= len(refs) - 2, f"only {dead} old graphs released"
 
 
+def test_program_cache_is_safe_under_threads(monkeypatch):
+    """Graphs render from several threads: the cache's LRU get and put, a
+    graph's listing and its drops hold the cache's lock, so no thread's
+    get meets a key another evicted between its read and its move, and
+    no listing sees the dict change size (both raised without it)."""
+    import threading
+
+    monkeypatch.setattr(C, "_PROGRAM_CACHE", {})
+    monkeypatch.setattr(C, "_PROGRAM_CACHE_CAP", 8)
+
+    class Entry:
+        def __init__(self, cg):
+            self.cg = cg
+
+    graphs = [object() for _ in range(4)]
+    errors = []
+    barrier = threading.Barrier(16)
+
+    def work(i):
+        try:
+            barrier.wait()
+            g = graphs[i % 4]
+            for n in range(3000):
+                key = (i, n % 12)
+                if C._cache_get(key) is None:
+                    C._cache_put(key, Entry(g))
+                C._cache_get((i ^ 1, n % 12))
+                assert all(p.cg is g for p in C.CompiledGraph.programs(g))
+                if n % 50 == 0:
+                    C.CompiledGraph._drop_programs(g, lambda k: k[1] == 0)
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:3]
+    assert len(C._PROGRAM_CACHE) <= 8
+
+
 def test_refresh_drops_the_replaced_graphs_programs(tmp_path):
     """The port's deviation: programs never outlive their CompiledGraph.
     A refresh (release_chains) drops the old graph's entries even with
