@@ -108,8 +108,10 @@ phase 12 gates those of a replayed c4 render against its device rows.
    bake ms a render and the median walls each way; then c5 under
    TERMDAW_VOICE_CAP=2: finite, every voice table at most 2 voices a
    (block, member);
-17. TERMDAW_PROFILE: one c4 render with it set writes a Chrome trace;
-   the trace's top host ops by self CPU time and the device busy share;
+17. TERMDAW_PROFILE: one c4 render with it set writes a Chrome trace
+   that holds the whole render's program spans (render.device, window,
+   fetch, wav write, ...) as user annotations; the trace's top host ops
+   by self CPU time and the device busy share;
 18. sharded scans and renders (termdaw_tpu_torch/tools/shard_render.py)
    on 4 ranks, one process each (parallel/mesh.launch): NCCL with a card
    a rank where the machine has 4 cards, else gloo with the 4 ranks on
@@ -154,10 +156,11 @@ phase 12 gates those of a replayed c4 render against its device rows.
    card from graphs (all four default-path kernels launched), its WAV
    written through the native pack24 (counted in `native.calls`) and
    through the numpy body in turns, 3 renders each, byte-identical, and
-   within phase 5's bound of the port's CPU render; the `render
-   fetch+write` span and the render() wall each way beside the median of
-   5 render_device walls; the render's ints packed and unpacked native
-   and numpy (medians of 5, in turns). Then phase 15's stream bytes
+   within phase 5's bound of the port's CPU render; the program's
+   `fetch` + `wav write` spans (utils/prof, recorded) and the render()
+   wall each way beside the median of 5 render_device walls; the
+   render's ints packed and unpacked native and numpy (medians of 5, in
+   turns). Then phase 15's stream bytes
    decoded in 4096-byte reads and in one blob, native (scans counted)
    and numpy, the same packets; the two headers whose declared size the
    scanner rejects (2^25 events, 2^29 bytes of text) raising PacketError;
@@ -1134,12 +1137,13 @@ def native_render(fixtures, tmp: Path, cuda, reset_counts) -> dict:
     States of it rendered in lockstep, one writing its WAV through the
     native pack24 and one through the numpy body (a render's effect state
     carries into the next, so the k-th renders are compared), in turns:
-    byte-identical; the `render fetch+write` span and the render() wall
+    byte-identical; the program's `fetch` + `wav write` and
+    `render.device` spans (utils/prof.recording) and the render() wall
     each way; the render's ints packed and unpacked both ways; the first
     WAV against the port's CPU render, as in phase 5."""
     from termdaw_tpu_torch import native
-    from termdaw_tpu_torch.engine import state as state_mod
     from termdaw_tpu_torch.fileio import wav as wavio
+    from termdaw_tpu_torch.utils import prof
 
     check(native.get_lib() is not None,
           f"the native library did not load: {native.load_error}")
@@ -1157,21 +1161,17 @@ def native_render(fixtures, tmp: Path, cuda, reset_counts) -> dict:
     reset_counts()
     sts = {way: fixtures.load_state(d, cuda) for way in ("native", "numpy")}
 
-    spans: dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def timed_span(name):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            spans[name] = (time.perf_counter() - t0) * 1e3
+    def span_ms(t0: float, *names: str) -> float:
+        # the program's spans of the render that began at t0
+        got = [r for r in prof.records() if r.t0 >= t0 and r.name in names]
+        check({r.name for r in got} == set(names),
+              f"the render recorded {sorted({r.name for r in got})}, "
+              f"not all of {names}")
+        return sum(r.ms for r in got)
 
     runs: dict[str, list[dict]] = {"native": [], "numpy": []}
     wavs: dict[str, list[bytes]] = {"native": [], "numpy": []}
-    orig_span = state_mod.span
-    state_mod.span = timed_span
-    try:
+    with prof.recording():
         for i in range(NATIVE_RENDERS):
             for way in ("native", "numpy")[::1 if i % 2 == 0 else -1]:
                 n0 = native.calls["pack24"]
@@ -1186,10 +1186,8 @@ def native_render(fixtures, tmp: Path, cuda, reset_counts) -> dict:
                 wavs[way].append(wav.read_bytes())
                 runs[way].append({
                     "render_wall_ms": wall * 1e3,
-                    "fetch_write_ms": spans["render fetch+write"],
-                    "windows_ms": spans["render windows"]})
-    finally:
-        state_mod.span = orig_span
+                    "fetch_write_ms": span_ms(t0, "fetch", "wav write"),
+                    "windows_ms": span_ms(t0, "render.device")})
     for i, (a, b) in enumerate(zip(wavs["native"], wavs["numpy"])):
         check(a == b, f"render {i + 1}: the 24-bit c4 WAV written through "
                       f"the native pack24 differs from the numpy one")
@@ -2524,6 +2522,14 @@ def main() -> int:
             traces = sorted(Path(pdir).glob("render-*.json"))
             check(len(traces) == 1 and traces[0].stat().st_size > 0,
                   f"TERMDAW_PROFILE wrote {len(traces)} traces")
+            ranges = {e.get("name") for e in json.loads(
+                traces[0].read_text())["traceEvents"]
+                if e.get("cat") == "user_annotation"}
+            want = {"render", "render.device", "seed caps", "window",
+                    "resample", "quantize", "fetch", "wav write",
+                    "wav encode", "wav file"}
+            check(want <= ranges, "the TERMDAW_PROFILE trace lacks the "
+                  f"program's spans {sorted(want - ranges)}")
             emit("profile_env", card=card, trace_bytes=traces[0].stat().
                  st_size, render_wall_s=p_wall,
                  **trace_breakdown(traces[0]))

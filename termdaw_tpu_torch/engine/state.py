@@ -11,8 +11,9 @@ graph rebuild) is carried over unchanged; what differs:
   them; the replaced graph's chains are released first and caps stay
   sticky per project dir (`cap_scope`), as in the reference;
 * there is no backend guard: renders run on the State's device, in
-  windows of `render_chunk_blocks(cs)` blocks, traced into
-  TERMDAW_PROFILE's dir when it is set (utils/prof.device_trace);
+  windows of `render_chunk_blocks(cs)` blocks, a whole render traced
+  into TERMDAW_PROFILE's dir when it is set (utils/prof.device_trace);
+  the steps of a refresh and a render are `utils/prof.span`s;
 * `render_device` returns device int tensors, which `render` copies to
   the host for the WAV writer;
 * timeline sharding (state.py:527-593, 670-693): a State handed a Mesh
@@ -275,7 +276,8 @@ class State:
         )
 
         try:
-            lua.execute(self.contents)
+            with span("refresh.lua"):
+                lua.execute(self.contents)
         except LuaError as e:
             print(f"{RED}Could not execute lua code!{DEFAULT}\n\t{e}")
             raise RefreshAbort from None
@@ -517,13 +519,14 @@ class State:
         # ---- build the window program ---------------------------------------
         # the replaced graph's chains are pure cache: they must not keep
         # holding device memory
-        if self.compiled is not None:
-            self.compiled.release_chains()
-        self.compiled = CompiledGraph(
-            self.g, self.sb, bl, device=self.device,
-            wavetables=wavetables, plugin_host=self.host,
-            cap_scope=str(self.wdir),
-        )
+        with span("refresh.compile"):
+            if self.compiled is not None:
+                self.compiled.release_chains()
+            self.compiled = CompiledGraph(
+                self.g, self.sb, bl, device=self.device,
+                wavetables=wavetables, plugin_host=self.host,
+                cap_scope=str(self.wdir),
+            )
         self.compiled.reset_normalize_vertices()
         print(f"{GREEN}Ok: refreshed.{DEFAULT}")
         self.loaded = True
@@ -589,6 +592,10 @@ class State:
 
     # ------------------------------------------------------------------ render
     def render(self) -> None:
+        with device_trace("render"), span("render"):
+            self._render()
+
+    def _render(self) -> None:
         print(f"{DEFAULT}Status: started rendering{DEFAULT}")
         mesh, n, _ = self._mesh_plan()
         # rank 0 of a sharded render (or the only rank) writes the WAV
@@ -630,16 +637,18 @@ class State:
         # repeated renders behave identically
         self.fb.set_time(cg.get_time())
 
-        with span("render windows"), device_trace("render"):
-            chunks = self.render_device()
+        chunks = self.render_device()
 
         if leads:
             writer = WavWriter(
                 self._resolve(self.output_file), 2, self.render_sr, self.bd
             )
-            with span("render fetch+write"):
-                for ints in chunks:
-                    writer.write_ints(ints.cpu().numpy())
+            for ints in chunks:
+                # the host waits here for what the device has queued
+                with span("fetch") as sp:
+                    host = ints.cpu().numpy()
+                    sp.attr("bytes", host.nbytes)
+                writer.write_ints(host)
             writer.close()
         cg.set_time(0)
         print(f"{GREEN}Ok: done rendering.{DEFAULT}")
@@ -651,28 +660,31 @@ class State:
         device int chunks (one, or none for an empty render; none on a
         rank other than 0 of a sharded render); graph time is advanced,
         not reset."""
-        psr = self.config.settings.project_samplerate
-        cg = self.compiled
-        mesh, n, step = self._mesh_plan()
-        # pin bake-table caps from the full known schedule so every window
-        # below produces the same table layout; only a single-device render
-        # stores a chain (sharded windows bake live)
-        cg.seed_caps(self.fb, self.cs, step, prebake=(n == 1))
-        leads = mesh is None or mesh.rank == 0
-        wins: list[torch.Tensor] = []
-        left = self.cs
-        while left > 0:
-            nb = self._pick_nb(left, step, n)
-            win = self._render_window_auto(cg, nb, mesh, n)
-            if leads:
-                wins.append(win)
-            self.fb.advance_blocks(nb)
-            left -= nb
-        if not wins:
-            return []
-        if psr > self.render_sr:
-            wins = [StreamingResampler(psr, self.render_sr, self.device)
-                    .render_whole(wins)]
-        if sum(int(w.shape[0]) for w in wins) == 0:
-            return []
-        return [quantize_interleave_many(wins, self.bd)]
+        with span("render.device"):
+            psr = self.config.settings.project_samplerate
+            cg = self.compiled
+            mesh, n, step = self._mesh_plan()
+            # pin bake-table caps from the full known schedule so every window
+            # below produces the same table layout; only a single-device render
+            # stores a chain (sharded windows bake live)
+            cg.seed_caps(self.fb, self.cs, step, prebake=(n == 1))
+            leads = mesh is None or mesh.rank == 0
+            wins: list[torch.Tensor] = []
+            left = self.cs
+            while left > 0:
+                nb = self._pick_nb(left, step, n)
+                win = self._render_window_auto(cg, nb, mesh, n)
+                if leads:
+                    wins.append(win)
+                self.fb.advance_blocks(nb)
+                left -= nb
+            if not wins:
+                return []
+            if psr > self.render_sr:
+                with span("resample"):
+                    wins = [StreamingResampler(psr, self.render_sr,
+                                               self.device).render_whole(wins)]
+            if sum(int(w.shape[0]) for w in wins) == 0:
+                return []
+            with span("quantize"):
+                return [quantize_interleave_many(wins, self.bd)]

@@ -34,6 +34,7 @@ from pathlib import Path
 import numpy as np
 
 from .. import native
+from ..utils.prof import span
 
 WAVE_FORMAT_PCM = 0x0001
 WAVE_FORMAT_IEEE_FLOAT = 0x0003
@@ -245,19 +246,23 @@ class WavWriter:
     def write_ints(self, ints: np.ndarray) -> None:
         """Write already-quantized interleaved integer samples (int32 values
         within the target bit range — e.g. the output of the device-side
-        quantize kernel, ops/quantize.py)."""
-        flat = np.asarray(ints).reshape(-1).astype(np.int64)
-        bits = self.bits
-        if bits == 8:
-            raw = (flat + 128).astype(np.uint8).tobytes()
-        elif bits == 16:
-            raw = flat.astype("<i2").tobytes()
-        elif bits == 24:
-            raw = _pack24(flat.astype(np.int32))
-        else:
-            raw = flat.astype("<i4").tobytes()
-        self._f.write(raw)
-        self._data_bytes += len(raw)
+        quantize kernel, ops/quantize.py). Spans: `wav write` holding
+        `wav encode` (the widening and packing) and `wav file`."""
+        with span("wav write"):
+            with span("wav encode"):
+                flat = np.asarray(ints).reshape(-1).astype(np.int64)
+                bits = self.bits
+                if bits == 8:
+                    raw = (flat + 128).astype(np.uint8).tobytes()
+                elif bits == 16:
+                    raw = flat.astype("<i2").tobytes()
+                elif bits == 24:
+                    raw = _pack24(flat.astype(np.int32))
+                else:
+                    raw = flat.astype("<i4").tobytes()
+            with span("wav file"):
+                self._f.write(raw)
+            self._data_bytes += len(raw)
 
     def close(self) -> None:
         if self._f.closed:

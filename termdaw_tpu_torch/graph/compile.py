@@ -117,6 +117,7 @@ from . import bake as B
 from . import graph as G
 from ..ops import envelope, filters, fx, mix, sampler, scan, synthv, voices
 from ..ops.filters import BandPassState
+from ..utils.prof import span
 
 # kinds whose window kernels read absolute frames / the time table
 _FRAME_KINDS = (G.SAMPLELERP, G.DEBUGSINE, G.SYNTH, G.SAMPSYN, G.ADSR)
@@ -301,7 +302,7 @@ class _WindowProgram:
                 self.collectives = mesh.collective_calls - calls
         else:
             if self.graph is None:
-                with _PROGRAM_LOCK:
+                with _PROGRAM_LOCK, span("window.capture"):
                     self._capture(self.ints.device)
             self.graph.replay()
             if mesh is not None:
@@ -860,38 +861,39 @@ class CompiledGraph:
         state untouched. Also sizes the time table to the whole render,
         whose length is part of the program key (reference
         compile.py:600-608)."""
-        if total_blocks > 0:
-            self._ttab_min_frames = max(self._ttab_min_frames,
-                                        total_blocks * self.bl)
-        if total_blocks <= 0 or not self.carries:
-            return
-        do_prebake = self._prebake_on and prebake is not False
-        # do_prebake rides the sig: a schedule first seeded for the sharded
-        # path must still build its chain when a single-device render
-        # asks for one
-        sig = (fb.uid, fb.version, total_blocks, step, do_prebake)
-        if sig in self._seeded_sigs:
-            return  # schedule unchanged since the last seed
-        saved_frame = fb.frame
-        fb.set_time(0)
-        try:
-            carries = {vi: _CARRY_CLASSES[self.statics[vi].kind]()
-                       for vi in self.carries}
-            t, left = 0, total_blocks
-            while left > 0:
-                nb = min(left, step)
-                _, nc = self._bake_all(fb, t, nb, carries=carries)
-                carries.update(nc)
-                fb.advance_blocks(nb)
-                t += nb * self.bl
-                left -= nb
-            if do_prebake:
-                self._prebake_chain(fb, total_blocks, step)
-        finally:
-            # an interrupt mid-seed must not leave the bank's cursor
-            # desynced from graph time
-            fb.set_time(saved_frame)
-        self._seeded_sigs.add(sig)
+        with span("seed caps"):
+            if total_blocks > 0:
+                self._ttab_min_frames = max(self._ttab_min_frames,
+                                            total_blocks * self.bl)
+            if total_blocks <= 0 or not self.carries:
+                return
+            do_prebake = self._prebake_on and prebake is not False
+            # do_prebake rides the sig: a schedule first seeded for the sharded
+            # path must still build its chain when a single-device render
+            # asks for one
+            sig = (fb.uid, fb.version, total_blocks, step, do_prebake)
+            if sig in self._seeded_sigs:
+                return  # schedule unchanged since the last seed
+            saved_frame = fb.frame
+            fb.set_time(0)
+            try:
+                carries = {vi: _CARRY_CLASSES[self.statics[vi].kind]()
+                           for vi in self.carries}
+                t, left = 0, total_blocks
+                while left > 0:
+                    nb = min(left, step)
+                    _, nc = self._bake_all(fb, t, nb, carries=carries)
+                    carries.update(nc)
+                    fb.advance_blocks(nb)
+                    t += nb * self.bl
+                    left -= nb
+                if do_prebake:
+                    self._prebake_chain(fb, total_blocks, step)
+            finally:
+                # an interrupt mid-seed must not leave the bank's cursor
+                # desynced from graph time
+                fb.set_time(saved_frame)
+            self._seeded_sigs.add(sig)
 
     def _prebake_chain(self, fb: FlowwBank, total_blocks: int,
                        step: int) -> None:
@@ -1273,37 +1275,43 @@ class CompiledGraph:
         compile.py:1016-1071). `eager` runs the eager program on them
         instead, outside the cache: for measurement, and for profiles that
         synchronize inside the program."""
-        t0 = self.t
-        served = self._prebake_take(fb, t0, nb)
-        if served is not None:
-            ints, floats, layout, new_carries, fresh_d, unfresh_d = served
-            self.served_windows += 1
-        else:
-            self._reset_chain_expects()
-            bakes, new_carries = self._bake_all(fb, t0, nb)
-            ints, floats, layout = _pack_bakes(bakes)
-            self.live_bakes += 1
-            self._record_window(fb, t0, nb, ints, floats, layout,
-                                new_carries)
-            ints, floats = torch.from_numpy(ints), torch.from_numpy(floats)
-        self._pack_fx()
-        ttab_len = int(self._time_table(t0 + nb * self.bl).shape[0]) \
-            if self._uses_time else 0
-        if eager:
-            audio = self._run_eager(ints, floats, layout, t0, nb, is_scan)
-        else:
-            audio = self._run_cached(
-                self._get_fn(nb, is_scan, layout, ttab_len), ints, floats, t0)
-        if served is None:
-            self._apply_carries(new_carries)
-        else:
-            # the served delta's classification was computed at build
-            self.carries.update(new_carries)
-            self._unfresh.difference_update(fresh_d)
-            self._unfresh.update(unfresh_d)
-        self.t = t0 + nb * self.bl
-        self.graph.t = self.t
-        return audio
+        with span("window") as sp:
+            t0 = self.t
+            served = self._prebake_take(fb, t0, nb)
+            sp.attr("nb", nb)
+            sp.attr("served", served is not None)
+            if served is not None:
+                ints, floats, layout, new_carries, fresh_d, unfresh_d = served
+                self.served_windows += 1
+            else:
+                with span("window.bake"):
+                    self._reset_chain_expects()
+                    bakes, new_carries = self._bake_all(fb, t0, nb)
+                    ints, floats, layout = _pack_bakes(bakes)
+                    self.live_bakes += 1
+                    self._record_window(fb, t0, nb, ints, floats, layout,
+                                        new_carries)
+                    ints = torch.from_numpy(ints)
+                    floats = torch.from_numpy(floats)
+            self._pack_fx()
+            ttab_len = int(self._time_table(t0 + nb * self.bl).shape[0]) \
+                if self._uses_time else 0
+            if eager:
+                audio = self._run_eager(ints, floats, layout, t0, nb, is_scan)
+            else:
+                audio = self._run_cached(
+                    self._get_fn(nb, is_scan, layout, ttab_len), ints,
+                    floats, t0)
+            if served is None:
+                self._apply_carries(new_carries)
+            else:
+                # the served delta's classification was computed at build
+                self.carries.update(new_carries)
+                self._unfresh.difference_update(fresh_d)
+                self._unfresh.update(unfresh_d)
+            self.t = t0 + nb * self.bl
+            self.graph.t = self.t
+            return audio
 
     def window_cost(self, fb: FlowwBank, nb: int,
                     is_scan: bool = False) -> dict:

@@ -25,6 +25,7 @@ import time
 from .. import native
 from ..engine.player import Player
 from ..fileio.packets import PacketDecoder, PacketError
+from ..utils.prof import span
 from ..utils.term import DEFAULT, RED
 
 # the live prebuffer and lead: an event lands behind this many blocks of
@@ -105,8 +106,9 @@ def run_stream_workflow(
         if not state.loaded:
             print(f"{RED}State not loaded!{DEFAULT}")
             continue
-        state.fb.trim_streams()
-        msgs = state.fb.append_streams(payload)
+        with span("stream feed"):
+            state.fb.trim_streams()
+            msgs = state.fb.append_streams(payload)
         state.fb.set_time(state.compiled.get_time())
         if msgs:
             print(f"MSGs: {msgs}")
