@@ -15,7 +15,7 @@ phase 12 gates those of a replayed c4 render against its device rows.
 
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
 2. build: compiles every kernel (csrc/voice_mix.cu, affine_scan.cu,
-   max_decay_scan.cu, complex_scan.cu, biquad_seq.cu) with nvcc for
+   max_decay_scan.cu, complex_scan.cu, biquad_seq.cu, sampsyn.cu) with nvcc for
    sm_90a, one nvcc process each, all in parallel, and prints each
    compiled kernel's registers, shared memory and spills (ptxas); the
    exact lane's SASS (cuobjdump) must hold no FFMA;
@@ -30,7 +30,13 @@ phase 12 gates those of a replayed c4 render against its device rows.
    float64 recurrence and within 1e-5 of each other, relative to max |y|;
    and a slow pole (a = 0.9999, same shape), where the kernel must be
    within 1e-4 of float64 relative to max |y| (the plain version's
-   distance is printed, not gated);
+   distance is printed, not gated); then the SampSyn kernel
+   (csrc/sampsyn.cu) against its plain version at c4's chord shape (375
+   blocks of 1024 frames, 8 slots over 64 notes, the default 2 x 2048
+   wavetable; utils/fixtures.sampsyn_window), within 2e-6 (only the
+   order of the sum over slots differs); phase 11
+   prints its line: the max |diff|, the kernel's device ms, the plain
+   version's ms and the bytes bound at 3.35 TB/s;
 5. c5 end to end (64 streamed SampleMulti tracks, 48 kHz / 1024, 40 s,
    32-bit, a 96 kHz hit resampled on import): refresh + render on cuda,
    the kernel launch counts of that run, its replays and captures, and
@@ -57,8 +63,12 @@ phase 12 gates those of a replayed c4 render against its device rows.
    conjugate pair at 20 Hz), checked as phase 4's slow pole;
 10. c4 end to end (the reference's demo project with the reverb ->
    compressor -> eq3 -> delay chain, 48 kHz / 1024, 40 s -> 44.1 kHz
-   16-bit): refresh + render on cuda, which must launch all four kernels,
-   and the WAV against the port's CPU render, as in phase 5;
+   16-bit): refresh + render on cuda, which must launch all five kernels,
+   and the WAV against the port's CPU render, as in phase 5; then the
+   project's own SampSyn windows, run eager (375 blocks each, the whole
+   40 s): each window's sampsyn call on the card (the kernel) against
+   sampsyn_plain on the same bake, frames and in-block clock, within
+   phase 4's 2e-6, the chords' slots filled 3 deep at least;
 11. timings after one warm-up: render_device wall time (synchronized),
    the median of 5, for c5, c1, c2, c3 and c4; each kernel against its
    plain version (CUDA events per wrapper call); and each kernel's device
@@ -153,7 +163,7 @@ phase 12 gates those of a replayed c4 render against its device rows.
 20. the native host library (termdaw_tpu_torch/native/, compiled with
    g++ in phase 2 into termdaw_tpu_torch/build/): the compiler's version,
    the build's seconds (or "cached") and the .so; c4 at 24 bits on the
-   card from graphs (all four default-path kernels launched), its WAV
+   card from graphs (all five default-path kernels launched), its WAV
    written through the native pack24 (counted in `native.calls`) and
    through the numpy body in turns, 3 renders each, byte-identical, and
    within phase 5's bound of the port's CPU render; the program's
@@ -174,7 +184,7 @@ phase 12 gates those of a replayed c4 render against its device rows.
    eager, in lockstep, then 5 more passes each way in turns. Gated: the
    audio and the numeric state bit-identical eager against replayed,
    every window a replay, every program captured with all its collectives
-   (as many as the eager program issues a window) and, on c4, all four
+   (as many as the eager program issues a window) and, on c4, all five
    default-path kernels (c5: the voice mix), each launched in the first
    pass (wrapper counts set to 0 just before it). Printed: the window
    walls (medians eager and
@@ -295,6 +305,11 @@ SLOW_DECAY_T = 100003                         # phase 9's long slow decay
 # the per-kernel bounds are held against one H100 SXM's published peaks
 # (utils/roofline.chip_peaks of this name)
 BOUND_CARD = "NVIDIA H100 80GB HBM3"
+# phase 4: the SampSyn kernel at c4's chord shape (the chords' 8 slots),
+# how far from its plain version it may read, and the chords' envelope
+# (ops/adsr.hit_conf(0.01, 0.1, 0.8, 5.0, 0.2, 0.5), the fixtures')
+SAMPSYN_P, SAMPSYN_N, SAMPSYN_ATOL = 8, 64, 2e-6
+SAMPSYN_CONF = (0.0, 0.01, 1.0, 0.1, 0.8, 5.0, 0.2, 0.5, 0.0)
 # the exact lane's latency bound: 3 dependent FP32 operations of 4 cycles
 # a frame at the H100 SXM's 1.98 GHz boost clock
 BIQUAD_CYCLES_A_FRAME, BOOST_HZ = 12, 1.98e9
@@ -314,11 +329,11 @@ PIPE_SECONDS, PIPE_STREAMS = 12, "kick,snare,hihat,ride,bass,chords"
 # phase 25: the kernels each card entry of the parity report (run with
 # --full, all seven entries) must launch, and how many times the CPU's
 # max |err| the card's may be (the readings differ by 2 dB at most)
-PARITY_KERNELS = {"config3_synths_bandpass": ("affine_scan",),
+PARITY_KERNELS = {"config3_synths_bandpass": ("affine_scan", "sampsyn"),
                   "config4_fx_chain_invariance": ("affine_scan",
                                                   "max_decay_scan"),
                   "config5_multitrack_fused": ("voice_mix",),
-                  "config3_full_48k": ("affine_scan",)}
+                  "config3_full_48k": ("affine_scan", "sampsyn")}
 PARITY_CARD_VS_CPU = 10.0
 PARITY_TIMEOUT_S = 300
 # phase 26: the concurrent renders' rounds, the feed/render cycles, and the
@@ -707,9 +722,10 @@ def profile_render(st) -> dict:
         for k, name in (("voice_mix", "voice_mix_kernel"),
                         ("affine_scan", "AffineScanOp"),
                         ("max_decay_scan", "MaxDecayScanOp"),
-                        ("complex_scan", "ComplexScanOp")):
+                        ("complex_scan", "ComplexScanOp"),
+                        ("sampsyn", "sampsyn_kernel")):
             ks = [e for e in dev if name in e.name]
-            calls = [e for e in ks if k == "voice_mix"
+            calls = [e for e in ks if k in ("voice_mix", "sampsyn")
                      or "tile_scan" in e.name]
             mine[k] = {"ms": ms(ks), "device_kernels": len(ks),
                        "device_calls": len(calls)}
@@ -756,6 +772,56 @@ def render_wav(fixtures, d, device, packets, wav):
     st.render()
     torch.cuda.synchronize()
     return st, *fixtures.read_wav_ints(wav)
+
+
+def c4_sampsyn_windows(fixtures, d, device) -> dict:
+    """Phase 10: the c4 project's SampSyn windows on `device`, run eager
+    after one render (graphs hold no arguments to keep): each window's
+    sampsyn call (the kernel) with its arguments cloned, then
+    sampsyn_plain on them. Returns the windows' max |diff|, max |y| and
+    most live slots a block."""
+    from termdaw_tpu_torch.ops import synthv
+
+    st = fixtures.load_state(d, device)
+    st.render()
+    cg, calls, kernel = st.compiled, [], synthv.sampsyn
+
+    def keep(*args):
+        out = kernel(*args)
+        calls.append(([{k: v.clone() for k, v in a.items()}
+                       if isinstance(a, dict) else
+                       a.clone() if isinstance(a, torch.Tensor) else a
+                       for a in args], out.clone()))
+        return out
+
+    synthv.sampsyn = keep
+    try:
+        st.fb.set_time(0)
+        cg.set_time(0)
+        left = st.cs
+        while left > 0:
+            nb = min(C5_NB, left)
+            cg.render_window(st.fb, nb, eager=True)
+            st.fb.advance_blocks(nb)
+            left -= nb
+    finally:
+        synthv.sampsyn = kernel
+    check(len(calls) == -(-st.cs // C5_NB),
+          f"c4: {len(calls)} sampsyn calls in {st.cs} blocks")
+    err = y = 0.0
+    slots = 0
+    for args, got in calls:
+        want = synthv.sampsyn_plain(*args)
+        err = max(err, float((got - want).abs().max()))
+        y = max(y, float(want.abs().max()))
+        slots = max(slots, int((args[0]["idx"] >= 0).sum(dim=1).max()))
+    check(slots >= 3, f"c4's SampSyn windows hold no chord ({slots} slots)")
+    check(y > 0.01, f"c4's SampSyn windows are silent (max |y| {y})")
+    check(err <= SAMPSYN_ATOL,
+          f"sampsyn kernel vs plain on c4's windows max |diff| {err} > "
+          f"{SAMPSYN_ATOL}")
+    return {"windows": len(calls), "max_live_slots": slots,
+            "max_abs_y": y, "max_abs_err": err, "atol": SAMPSYN_ATOL}
 
 
 def compare(name, gpu, cpu, bd, rate, want_rate, want_len) -> dict:
@@ -1194,7 +1260,8 @@ def native_render(fixtures, tmp: Path, cuda, reset_counts) -> dict:
     st = sts["native"]
     replays = check_replays(st, "c4 at 24 bits")
     launches = path_launches(st.compiled)
-    for k in ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan"):
+    for k in ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan",
+              "sampsyn"):
         check(launches.get(k, 0) > 0,
               f"the 24-bit c4 render launched no {k} kernel")
     device_s = wall_render(st, 5)
@@ -1278,7 +1345,7 @@ def example_renders(fixtures, tmp: Path, cuda, cpu) -> dict:
                                     n),
                      "in_process": compare(name, card, host, 16, card_rate,
                                            SR, n)}
-    for k in ("voice_mix", "affine_scan", "max_decay_scan"):
+    for k in ("voice_mix", "affine_scan", "max_decay_scan", "sampsyn"):
         check(union.get(k, 0) > 0, f"no example launched the {k} kernel")
     t0 = time.perf_counter()
     example_assets.ensure(tmp / "assets_timed")
@@ -1913,7 +1980,8 @@ def main() -> int:
     from termdaw_tpu_torch import kernels
     from termdaw_tpu_torch.engine.player import Player
     from termdaw_tpu_torch.graph import compile as gcompile
-    from termdaw_tpu_torch.ops import filters, scan, voices
+    from termdaw_tpu_torch.ops import filters, scan, synthv, voices
+    from termdaw_tpu_torch.ops.adsr import AdsrConf
     from termdaw_tpu_torch.utils import fixtures
 
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
@@ -1921,7 +1989,7 @@ def main() -> int:
     def reset_counts():
         voices.launches = scan.launches = 0
         scan.max_decay_launches = scan.complex_launches = 0
-        filters.biquad_seq_launches = 0
+        filters.biquad_seq_launches = synthv.sampsyn_launches = 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -2004,6 +2072,19 @@ def main() -> int:
          kernel_vs_plain=scan_err, kernel_vs_f64=err64, plain_vs_f64=plain64,
          rtol_f64=SCAN_F64_RTOL, rtol_plain=SCAN_PLAIN_RTOL,
          slow_pole=dict(a=SLOW_POLE, **affine_slow))
+    ss_args = fixtures.sampsyn_window(cuda, C5_NB, BL, SAMPSYN_P, SAMPSYN_N)
+    ss_bake, ss_frames, ss_ib, ss_times, ss_waves = ss_args
+    ss_call = (ss_bake, ss_frames, C5_NB, BL, AdsrConf(*SAMPSYN_CONF),
+               ss_times, ss_waves, ss_ib)
+    n0 = synthv.sampsyn_launches
+    ss_got = synthv.sampsyn(*ss_call)
+    torch.cuda.synchronize()
+    check(synthv.sampsyn_launches == n0 + 1, "sampsyn: no launch counted")
+    ss_want = synthv.sampsyn_plain(*ss_call)
+    ss_err = float((ss_got - ss_want).abs().max())
+    check(bool(torch.isfinite(ss_got).all()), "sampsyn output not finite")
+    check(ss_err <= SAMPSYN_ATOL,
+          f"sampsyn kernel vs plain max |diff| {ss_err} > {SAMPSYN_ATOL}")
 
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
         tmp = Path(tmp)
@@ -2057,12 +2138,13 @@ def main() -> int:
             wall = time.perf_counter() - t0
             replays = check_replays(st, cfg)
             check_wrapper_counts(st.compiled, {
-                "voice_mix": voices.launches, "affine_scan": scan.launches},
-                cfg)
+                "voice_mix": voices.launches, "affine_scan": scan.launches,
+                "sampsyn": synthv.sampsyn_launches}, cfg)
             counts = path_launches(st.compiled)
             if cfg == "c3":
-                check(counts.get("affine_scan", 0) > 0,
-                      "the c3 render launched no affine-scan kernel")
+                for k in ("affine_scan", "sampsyn"):
+                    check(counts.get(k, 0) > 0,
+                          f"the c3 render launched no {k} kernel")
             _, cpu_ints, _ = render_wav(fixtures, d, cpu, b"",
                                         d / "outp.wav")
             emit(f"{cfg}_end_to_end", seconds=SECONDS, sr=SR, bd=16,
@@ -2172,10 +2254,11 @@ def main() -> int:
         check_wrapper_counts(st4.compiled, {
             "voice_mix": voices.launches, "affine_scan": scan.launches,
             "max_decay_scan": scan.max_decay_launches,
-            "complex_scan": scan.complex_launches}, "c4")
+            "complex_scan": scan.complex_launches,
+            "sampsyn": synthv.sampsyn_launches}, "c4")
         c4_counts = path_launches(st4.compiled)
         for k in ("voice_mix", "affine_scan", "max_decay_scan",
-                  "complex_scan"):
+                  "complex_scan", "sampsyn"):
             check(c4_counts.get(k, 0) > 0,
                   f"the c4 render launched no {k} kernel")
         _, cpu4, _ = render_wav(fixtures, d4, cpu, b"", d4 / "outp.wav")
@@ -2183,7 +2266,8 @@ def main() -> int:
              bd=16, launches=c4_counts, **c4_replays,
              first_render_wall_s=c4_wall,
              **compare("c4", gpu4, cpu4, 16, rate4, 44100,
-                       2 * -(-st4.cs * BL * 147 // 160)))
+                       2 * -(-st4.cs * BL * 147 // 160)),
+             sampsyn_windows=c4_sampsyn_windows(fixtures, d4, cuda))
 
         # 11. timings
         c5_s = wall_render(st5, 5)
@@ -2235,6 +2319,15 @@ def main() -> int:
             scan.complex_affine_scan_work(*dev)))}
         per_kernel["affine_scan"] = affine_t["band_pass"]
         per_kernel["complex_affine_scan"] = complex_t["eq3_stage"]
+        # phase 4's SampSyn window, timed last (the profiler's first
+        # session of the process stays the voice mix's, as before)
+        per_kernel["sampsyn"] = timed(
+            lambda: synthv.sampsyn(*ss_call),
+            lambda: synthv.sampsyn_plain(*ss_call),
+            synthv.sampsyn_work(*ss_call))
+        emit("sampsyn_vs_plain", nb=C5_NB, bl=BL, P=SAMPSYN_P, N=SAMPSYN_N,
+             K=ss_waves.shape[0], W=ss_waves.shape[1], max_abs_err=ss_err, max_abs_y=float(ss_want.abs().max()),
+             atol=SAMPSYN_ATOL, **per_kernel["sampsyn"])
         emit("timings", card=card,
              c5_render_device_s=c5_s, c5_median_s=statistics.median(c5_s),
              c1_render_device_s=c1_s, c1_median_s=statistics.median(c1_s),
@@ -2372,7 +2465,8 @@ def main() -> int:
         sess_wrappers = {"voice_mix": voices.launches,
                          "affine_scan": scan.launches,
                          "max_decay_scan": scan.max_decay_launches,
-                         "complex_scan": scan.complex_launches}
+                         "complex_scan": scan.complex_launches,
+                         "sampsyn": synthv.sampsyn_launches}
         # the programs still cached (a longer time table drops the others)
         sess_launches = path_launches(sst.compiled)
         sess_pool_mb = sst.compiled.pool_bytes / 1e6
@@ -2667,7 +2761,7 @@ def main() -> int:
         try:
             replays = shard_render.replay_check(sharded_projects, need={
                 "c4": ("voice_mix", "affine_scan", "max_decay_scan",
-                       "complex_scan"), "c5": ("voice_mix",)})
+                       "complex_scan", "sampsyn"), "c5": ("voice_mix",)})
         except RuntimeError as e:
             check(False, str(e))
         emit("sharded_replays", card=card, transport="nccl, 1 rank on cuda:0",
@@ -2732,6 +2826,10 @@ def main() -> int:
         # is phase 13's at the eq3 stage shape [384,000, 4]
         ("biquad_seq", "biquad_seq", "termdaw_tpu/ops/filters.py:384",
          bq_launches, bq_err),
+        # no Pallas kernel: the reference's SampSyn arm is jnp that XLA
+        # fuses; its error is phase 4's at c4's chord shape
+        ("sampsyn", "sampsyn", "termdaw_tpu/ops/synthv.py sampsyn (XLA)",
+         c4_counts["sampsyn"], ss_err),
         # the voice mix at the wide configs' shapes (phase 24): c6's and
         # c7's renders, their first window's arguments
         *((f"voice_mix_stereo@{cfg}", "voice_mix",
@@ -2750,7 +2848,7 @@ def main() -> int:
         "bound_ms": per_kernel[name]["bound_ms"],
         "bound_by": per_kernel[name]["bound_by"],
         # no single PyTorch call computes a first-order recurrence, a
-        # max-decay scan, the voice mix or a biquad
+        # max-decay scan, the voice mix, a biquad or the SampSyn arm
         "library_ms": None,
     } for name, src, replaces, n, err in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -157,7 +157,8 @@ def _kernel_counts() -> dict[str, int]:
     return {"voice_mix": voices.launches, "affine_scan": scan.launches,
             "max_decay_scan": scan.max_decay_launches,
             "complex_scan": scan.complex_launches,
-            "biquad_seq": filters.biquad_seq_launches}
+            "biquad_seq": filters.biquad_seq_launches,
+            "sampsyn": synthv.sampsyn_launches}
 
 
 _CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}

@@ -12,7 +12,8 @@ max_decay_scan.cu on csrc/scan_tile.cuh) take their tiling from
 `scan_plan`, and their scratch planes from the launch functions here;
 the voice mix takes its regime, grid and shared memory from
 `voice_mix_plan`; the exact biquad lane (biquad_seq.cu) plans its own
-one-CTA-per-32-channels grid.
+one-CTA-per-32-channels grid; the SampSyn arm (sampsyn.cu) takes the
+envelope's and the table's constants as a `SampSynParams`.
 
 nvcc is looked up in `$CUDA_HOME/bin`, then `/usr/local/cuda/bin`, then
 `PATH`.
@@ -41,7 +42,7 @@ NVCC_FLAGS = (
 
 # every csrc/<name>.cu of the port
 KERNELS = ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan",
-           "biquad_seq")
+           "biquad_seq", "sampsyn")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -153,6 +154,26 @@ def biquad_seq_lib() -> ctypes.CDLL:
     vp = ctypes.c_void_p
     return _load("biquad_seq", "biquad_seq_launch",
                  [vp] * 9 + [ctypes.c_longlong, ctypes.c_int, vp])
+
+
+class SampSynParams(ctypes.Structure):
+    """csrc/sampsyn.cu's SampSynParams: the envelope's segments (base,
+    slope and f32 duration, and whether the duration is positive), its
+    f32 edges, the sustain and release velocities, the release's f32
+    duration, the amplitude and the table's W / 2^32, as the plain
+    version's f32 operands (ops/synthv._sampsyn_params)."""
+    _fields_ = [(n, ctypes.c_float) for n in (
+        "att_base", "att_slope", "att_div", "dec_base", "dec_slope",
+        "dec_div", "sus_base", "sus_slope", "sus_div", "a32", "d32", "ad",
+        "ads_end", "sustain_vel", "release_vel", "release_div", "amp",
+        "wscale")] + [(n, ctypes.c_int) for n in (
+            "att_on", "dec_on", "sus_on", "release_on")]
+
+
+def sampsyn_lib() -> ctypes.CDLL:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return _load("sampsyn", "sampsyn_launch",
+                 [vp] * 13 + [ci] * 6 + [vp, vp, vp])
 
 
 def load_all(device: torch.device) -> None:
@@ -356,3 +377,24 @@ def biquad_seq_launch(x: torch.Tensor, b0: torch.Tensor, b1: torch.Tensor,
                 T, C, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"biquad_seq kernel launch failed: CUDA error {rc}")
+
+
+def sampsyn_launch(frames: torch.Tensor, ib: torch.Tensor, cols: tuple,
+                   times: torch.Tensor, waves: torch.Tensor,
+                   params: SampSynParams, out: torch.Tensor, nb: int,
+                   bl: int) -> None:
+    """Launch csrc/sampsyn.cu on the tensors' device and current stream:
+    `cols` the bake's idx, on_f, off_f, dead_f, vels, cyc, rel_t, env_ads0
+    and env_rel0, in that order. The caller (ops/synthv.sampsyn) has
+    checked devices, dtypes, shapes and contiguity; raises if the launch
+    is refused."""
+    fn = sampsyn_lib().sampsyn_launch
+    idx, on_f = cols[0], cols[1]
+    K, W = waves.shape
+    with torch.cuda.device(out.device):
+        rc = fn(frames.data_ptr(), ib.data_ptr(),
+                *(t.data_ptr() for t in cols), times.data_ptr(),
+                waves.data_ptr(), nb, bl, idx.shape[1], on_f.shape[0], K, W,
+                ctypes.addressof(params), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sampsyn kernel launch failed: CUDA error {rc}")

@@ -15,17 +15,26 @@ SampSyn's wavetable phase is uint32 fixed point, phase = n * round(hz/sr *
 2^32) mod 2^32; PyTorch has no uint32 arithmetic, so it runs in int64
 masked with 0xFFFFFFFF (the low 32 bits of the wrapped 64-bit product are
 the uint32 product) and becomes float32 only after the mask.
+
+On CUDA tensors `sampsyn` runs the whole SampSyn arm as one hand-written
+kernel (csrc/sampsyn.cu) or raises; on CPU tensors it runs
+`sampsyn_plain`, the same arithmetic in PyTorch.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import osc
-from .adsr import AdsrConf, apply_ads, apply_r_rt
+from .adsr import AdsrConf, _f32, _seg_bounds, apply_ads, apply_r_rt
 from ..graph.bake import SENTINEL
+from ..utils.roofline import counted
 
 _U32 = 0xFFFFFFFF
+
+# launches of the CUDA kernel by sampsyn (CPU calls do not count)
+sampsyn_launches = 0
 
 
 def _slots(bake, nb: int, bl: int, frames: torch.Tensor):
@@ -126,7 +135,7 @@ def synth(
     return torch.stack([mono, mono], dim=1)
 
 
-def sampsyn(
+def sampsyn_plain(
     bake: dict[str, torch.Tensor], frames: torch.Tensor, nb: int, bl: int,
     conf: AdsrConf,
     table_times: torch.Tensor,  # [K] f32, ascending
@@ -191,3 +200,147 @@ def sampsyn(
     s = torch.where(alive, s, 0.0)
     mono = torch.sum(s, dim=2).reshape(-1)
     return torch.stack([mono, mono], dim=1)
+
+
+# the bake columns the kernel reads, in its launcher's order: the slot
+# table [nb, P], per note [N], per (block, note) [nb, N]; the first four
+# int32, the others float32
+_NOTE_COLS = ("on_f", "off_f", "dead_f", "vels", "cyc", "rel_t")
+_BLOCK_COLS = ("env_ads0", "env_rel0")
+_COLS = ("idx",) + _NOTE_COLS + _BLOCK_COLS
+_INT_COLS = _COLS[:4]
+
+
+def _check(bake, frames, nb, bl, table_times, table_waves, ib) -> None:
+    dev = frames.device
+    cols = [(k, bake.get(k), torch.int32 if k in _INT_COLS
+             else torch.float32) for k in _COLS]
+    for name, t, dtype in [("frames", frames, torch.int64),
+                           ("ib", ib, torch.float32),
+                           ("table_times", table_times, torch.float32),
+                           ("table_waves", table_waves, torch.float32),
+                           *cols]:
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"sampsyn: the bake has no {name}")
+        if t.device != dev:
+            raise ValueError(f"sampsyn: {name} on {t.device}, frames on "
+                             f"{dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"sampsyn: {name} is {t.dtype}, expected "
+                            f"{dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"sampsyn: {name} is not contiguous")
+    if nb <= 0 or bl <= 0:
+        raise ValueError(f"sampsyn: bad window of {nb} blocks of {bl}")
+    idx, on_f = bake["idx"], bake["on_f"]
+    if idx.dim() != 2 or idx.shape[0] != nb:
+        raise ValueError(f"sampsyn: idx must be [{nb}, P], got "
+                         f"{list(idx.shape)}")
+    if on_f.dim() != 1 or on_f.shape[0] < 1:
+        raise ValueError(f"sampsyn: on_f must be [N], N >= 1, got "
+                         f"{list(on_f.shape)}")
+    N = on_f.shape[0]
+    want = {"frames": (frames, [nb * bl]), "ib": (ib, [bl]),
+            **{k: (bake[k], [N]) for k in _NOTE_COLS},
+            **{k: (bake[k], [nb, N]) for k in _BLOCK_COLS}}
+    for name, (t, shape) in want.items():
+        if list(t.shape) != shape:
+            raise ValueError(f"sampsyn: {name} must be {shape}, got "
+                             f"{list(t.shape)}")
+    K = table_times.shape[0] if table_times.dim() == 1 else 0
+    if K < 1 or table_waves.dim() != 2 or table_waves.shape[0] != K \
+            or table_waves.shape[1] < 1:
+        raise ValueError("sampsyn: table_times [K] and table_waves [K, W] "
+                         f"must agree, K, W >= 1, got "
+                         f"{list(table_times.shape)} and "
+                         f"{list(table_waves.shape)}")
+
+
+# f32 operations of a live slot-frame in csrc/sampsyn.cu: the two clocks
+# (2 adds), an ADS segment or the release (at most 2 subtractions, a
+# division, a multiply and an add), the table clock (an add), the phase
+# (a multiply, a subtraction), the lerp in a snapshot (1 - frac, 2
+# multiplies, an add), the three amplitude multiplies and the slot sum's
+# add; with K > 1 also the blend (2 subtractions, a division), the second
+# snapshot's lerp (3) and the blend's lerp (1 - blend, 2 multiplies, an
+# add)
+SAMPSYN_FLOPS = 18
+SAMPSYN_BLEND_FLOPS = 10
+
+
+def sampsyn_work(bake: dict[str, torch.Tensor], frames: torch.Tensor,
+                 nb: int, bl: int, conf: AdsrConf, table_times: torch.Tensor,
+                 table_waves: torch.Tensor, ib: torch.Tensor
+                 ) -> tuple[float, float]:
+    """(flops, bytes) of one sampsyn: SAMPSYN_FLOPS a slot-frame (and
+    SAMPSYN_BLEND_FLOPS more with K > 1 snapshots); the frames, the
+    in-block clock, the bake columns it reads and the wavetable read once,
+    the [nb*bl, 2] mix written once."""
+    P = bake["idx"].shape[1]
+    K = table_waves.shape[0]
+    per = SAMPSYN_FLOPS + (SAMPSYN_BLEND_FLOPS if K > 1 else 0)
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        frames, ib, table_times, table_waves, *(bake[k] for k in _COLS)))
+    return float(nb * bl * P * per), float(nbytes + nb * bl * 2 * 4)
+
+
+def _sampsyn_params(conf: AdsrConf, W: int):
+    """The kernel's SampSynParams: the plain version's f32 operands (the
+    constants ops/adsr.py computes in numpy float32, the amplitude as
+    torch rounds a Python float to the tensor's f32)."""
+    from ..kernels import SampSynParams
+
+    a32, ad, ads_end = _seg_bounds(conf)
+    amp = 1.0 / conf.max_vel() if conf.max_vel() != 0.0 else 0.0
+
+    def slope(a, b):
+        return float(np.float32(b) - np.float32(a))
+
+    return SampSynParams(
+        att_base=_f32(conf.std_vel),
+        att_slope=slope(conf.std_vel, conf.attack_vel),
+        att_div=_f32(conf.attack_sec),
+        dec_base=_f32(conf.attack_vel),
+        dec_slope=slope(conf.attack_vel, conf.decay_vel),
+        dec_div=_f32(conf.decay_sec),
+        sus_base=_f32(conf.decay_vel),
+        sus_slope=slope(conf.decay_vel, conf.sustain_vel),
+        sus_div=_f32(conf.sustain_sec),
+        a32=float(a32), d32=_f32(conf.decay_sec), ad=float(ad),
+        ads_end=float(ads_end), sustain_vel=_f32(conf.sustain_vel),
+        release_vel=_f32(conf.release_vel),
+        release_div=_f32(conf.release_sec), amp=_f32(amp),
+        wscale=_f32(W / 2.0**32),
+        att_on=int(conf.attack_sec > 0.0), dec_on=int(conf.decay_sec > 0.0),
+        sus_on=int(conf.sustain_sec > 0.0),
+        release_on=int(conf.release_sec > 0.0),
+    )
+
+
+@counted(sampsyn_work)
+def sampsyn(
+    bake: dict[str, torch.Tensor], frames: torch.Tensor, nb: int, bl: int,
+    conf: AdsrConf,
+    table_times: torch.Tensor,  # [K] f32, ascending
+    table_waves: torch.Tensor,  # [K, W] f32
+    ib: torch.Tensor,
+) -> torch.Tensor:
+    """The SampSyn arm of a window, [nb*bl, 2] (see sampsyn_plain). CUDA
+    tensors run the hand-written kernel; CPU tensors the plain
+    version."""
+    global sampsyn_launches
+    _check(bake, frames, nb, bl, table_times, table_waves, ib)
+    dev = frames.device
+    if dev.type == "cpu":
+        return sampsyn_plain(bake, frames, nb, bl, conf, table_times,
+                             table_waves, ib)
+    if dev.type != "cuda":
+        raise ValueError(f"sampsyn: unsupported device {dev}")
+    from ..kernels import sampsyn_launch
+
+    out = torch.empty((nb * bl, 2), dtype=torch.float32, device=dev)
+    sampsyn_launch(frames, ib, tuple(bake[k] for k in _COLS), table_times,
+                   table_waves, _sampsyn_params(conf, table_waves.shape[1]),
+                   out, nb, bl)
+    sampsyn_launches += 1
+    return out

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from ..graph import compile as gcompile
-from ..ops import filters, fx, scan, voices
+from ..ops import filters, fx, scan, synthv, voices
 from ..parallel import launch
 from ..utils import fixtures
 
@@ -269,15 +269,10 @@ def transport(n_ranks: int) -> tuple[str, bool]:
     return "gloo", True
 
 
-def _counts() -> dict[str, int]:
-    return {"voice_mix": voices.launches, "affine_scan": scan.launches,
-            "max_decay_scan": scan.max_decay_launches,
-            "complex_scan": scan.complex_launches}
-
-
 def _reset_counts() -> None:
     voices.launches = scan.launches = 0
     scan.max_decay_launches = scan.complex_launches = 0
+    filters.biquad_seq_launches = synthv.sampsyn_launches = 0
 
 
 def sharded_programs(cg) -> list[dict]:
@@ -315,7 +310,7 @@ def render_rank(mesh, d: str, packets: bytes, wav: str, reps: int) -> dict:
     st.render()
     torch.cuda.synchronize(mesh.device)
     first = time.perf_counter() - t0
-    counts = _counts()
+    counts = gcompile._kernel_counts()
     cg = st.compiled
     out = {"rank": mesh.rank, "device": str(mesh.device), "launches": counts,
            "sharded_windows": cg.sharded_windows,
@@ -386,12 +381,12 @@ def single_walls(d: Path, packets: bytes, reps: int) -> dict:
 def summarize(name: str, res: dict, single_ints, bd: int) -> dict:
     """The checks and the printed numbers of one sharded run: raises
     RuntimeError if a rank launched no kernel of the project's path (c4:
-    all four of the default lane; c5: the voice mix), if its sharded
+    all five of the default lane; c5: the voice mix), if its sharded
     programs are not all captured (NCCL) or all eager (gloo), or if rank
     0's WAV is out of bound against `single_ints`."""
     ranks = res["ranks"]
-    need = ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan") \
-        if name == "c4" else ("voice_mix",)
+    need = ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan",
+            "sampsyn") if name == "c4" else ("voice_mix",)
     for r in ranks:
         for k in need:
             if r["launches"][k] <= 0:
@@ -546,7 +541,7 @@ def replay_rank(mesh, projects: list, windows: tuple, reps: int) -> dict:
                         walls[m][nb].append(dt)
                         colls[m][nb] = mesh.collective_calls - calls
             if i == 0:
-                launches = _counts()  # both ways' first pass
+                launches = gcompile._kernel_counts()  # both ways' first pass
                 states = {m: [t.cpu() for k in sorted(sts[m].compiled.
                                                       num_state)
                               for t in state_leaves(

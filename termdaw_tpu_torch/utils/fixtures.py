@@ -37,6 +37,7 @@ from ..fileio.midi import write_midi
 from ..fileio.packets import PacketDecoder, encode_events
 from ..fileio.wav import write_wav
 from ..fileio.wavetable import WaveTable, write_wavetable
+from ..graph.bake import SENTINEL
 
 
 def drum(path, sr, dur, freq, decay, noise=0.0, seed=0) -> None:
@@ -320,6 +321,65 @@ def load_state(d: Path, device, packets: bytes = b"", mesh=None):
     if packets:
         st.fb.append_streams(PacketDecoder().feed(packets))
     return st
+
+
+def sampsyn_window(device, nb: int, bl: int, P: int, N: int, K: int = 2,
+                   W: int = 2048, seed: int = 0, sr: int = 48000,
+                   empty: float = 0.25, uneven: bool = False,
+                   wrap: bool = False):
+    """Arguments of ops/synthv.sampsyn for one window of nb blocks of bl
+    frames from frame 5 s + 77 on `device`: (bake, frames, ib, times,
+    waves). The bake has P slots a block over N notes, about `empty` of
+    the slots empty (-1); notes start up to 2 s before the window or
+    inside it, a third held (no note-off), the others released inside
+    the window or after it (a note-off baked ahead), at pitches whose
+    phase increments wrap 2^32 within a few hundred frames; the envelope
+    clocks run 0-3 s, across every ADSR segment. `wrap` starts the notes
+    2^31 frames earlier, so that frames since note-on pass 2^31 too. K = 2
+    and W = 2048 give WaveTable.default(); other tables are random, their
+    times ascending from 0 (`uneven`: 0, 0.05, 1.7, then to 3 s)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t0 = 5 * sr + 77
+    T = nb * bl
+    idx = rng.integers(0, N, (nb, P)).astype(np.int32)
+    idx[rng.random((nb, P)) < empty] = -1
+    on = rng.integers(t0 - 2 * sr, t0 + T, N)
+    if wrap:
+        on = on - 2**31 + 4 * sr
+    off = on + rng.integers(0, 2 * sr + T, N)
+    off[rng.random(N) < 1 / 3] = SENTINEL
+    dead = np.where(off == SENTINEL, t0 + T + sr,
+                    off + rng.integers(0, sr, N))
+    hz = (440.0 * 2.0 ** ((rng.integers(24, 96, N) - 69) / 12.0)
+          ).astype(np.float32)
+    cols = {
+        "idx": idx, "on_f": on, "off_f": off, "dead_f": dead,
+        "vels": rng.uniform(0.1, 1.0, N), "cyc": hz / np.float32(sr),
+        "rel_t": np.where(off == SENTINEL, 0.0, rng.uniform(0.0, 3.0, N)),
+        "env_ads0": rng.uniform(0.0, 3.0, (nb, N)),
+        "env_rel0": rng.uniform(0.0, 2.0, (nb, N)),
+    }
+    ints = ("idx", "on_f", "off_f", "dead_f")
+    bake = {k: torch.from_numpy(np.ascontiguousarray(
+        v, np.int32 if k in ints else np.float32)).to(device)
+        for k, v in cols.items()}
+    if K == 2 and W == 2048 and not uneven:
+        wt = WaveTable.default()
+        times, waves = wt.times, wt.waves
+    else:
+        times = np.concatenate([[0.0], np.sort(rng.uniform(0.0, 2.0, K - 1))])
+        if uneven:
+            times = np.concatenate([[0.0, 0.05, 1.7],
+                                    np.linspace(2.0, 3.0, K)])[:K]
+        waves = rng.uniform(-1.0, 1.0, (K, W))
+    frames = torch.arange(t0, t0 + T, dtype=torch.int64, device=device)
+    ib = torch.from_numpy(
+        np.arange(bl, dtype=np.float32) / np.float32(sr)).to(device)
+    return (bake, frames, ib,
+            torch.from_numpy(np.asarray(times, np.float32)).to(device),
+            torch.from_numpy(np.asarray(waves, np.float32)).to(device))
 
 
 def read_wav_ints(path) -> tuple[np.ndarray, int]:

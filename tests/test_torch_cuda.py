@@ -1,5 +1,6 @@
 """The port on a CUDA card: the voice-mix, affine-scan, max-decay,
-complex-scan and exact-biquad kernels against their plain versions, the
+complex-scan, exact-biquad and SampSyn kernels against their plain
+versions (the SampSyn kernel also replayed from a CUDA graph), the
 effects, small renders (the exact lane's, a chain-served one and a 24-bit
 one with the native host library on and off among them), playback on
 the card against the port's CPU path, and sharded windows replayed from
@@ -22,12 +23,13 @@ from termdaw_tpu_torch import kernels, native
 from termdaw_tpu_torch.engine.player import Player
 from termdaw_tpu_torch.engine.sink import Sink
 from termdaw_tpu_torch.fileio.wav import read_wav
-from termdaw_tpu_torch.ops import filters, fx, scan, voices
+from termdaw_tpu_torch.ops import filters, fx, scan, synthv, voices
 from termdaw_tpu_torch.parallel.mesh import gather
 from termdaw_tpu_torch.tools import shard_render
+from termdaw_tpu_torch.ops.adsr import AdsrConf, hit_conf
 from termdaw_tpu_torch.utils.fixtures import (
-    load_state, read_wav_ints, write_c1_project, write_c2_project,
-    write_c3_project, write_c4_project, write_c5_project,
+    load_state, read_wav_ints, sampsyn_window, write_c1_project,
+    write_c2_project, write_c3_project, write_c4_project, write_c5_project,
 )
 
 pytestmark = pytest.mark.cuda
@@ -444,6 +446,126 @@ def test_scan_wrappers_refuse_mixes_and_count_only_on_card(cuda, op):
     assert sum(a - b for a, b in zip(after, before)) == 1
 
 
+# SampSyn windows (utils/fixtures.sampsyn_window): c4's chords, one and
+# three snapshots (uneven times), another table width, eight snapshots (a
+# 64 KB table), one and 64 slots, every slot empty, frames since note-on
+# past 2^31, a block length that is not a multiple of a CTA's frames;
+# every note's n * c_fix wraps 2^32, and the notes are released inside
+# the window and after it
+_SAMPSYN = {
+    "c4_chords": dict(nb=375, bl=1024, P=8, N=64),
+    "K1": dict(nb=16, bl=1024, P=8, N=24, K=1),
+    "K3_uneven": dict(nb=16, bl=1024, P=8, N=24, K=3, uneven=True),
+    "W600": dict(nb=16, bl=1024, P=8, N=24, W=600),
+    "K8": dict(nb=16, bl=1024, P=8, N=24, K=8),
+    "P1": dict(nb=32, bl=1024, P=1, N=12, empty=0.0),
+    "P64": dict(nb=8, bl=1024, P=64, N=96),
+    "empty": dict(nb=8, bl=512, P=8, N=16, empty=1.0),
+    "wrap": dict(nb=8, bl=700, P=8, N=16, wrap=True),
+    "ragged_bl": dict(nb=5, bl=1500, P=8, N=16),
+}
+_SAMPSYN_CONFS = [
+    hit_conf(0.01, 0.1, 0.8, 5.0, 0.2, 0.5),  # the fixtures' chords
+    AdsrConf(0.2, 0.0, 1.0, 0.05, 0.5, 0.1, 0.3, 0.0, 0.0),  # no attack
+    AdsrConf(0.0, 0.01, -2.0, 0.02, 0.5, 0.03, 0.2, 0.04, 0.0),  # <= -1
+]
+
+
+@pytest.mark.parametrize("case", sorted(_SAMPSYN))
+def test_sampsyn_kernel_matches_plain_on_card(cuda, case):
+    """csrc/sampsyn.cu against sampsyn_plain on the card, each window under
+    three envelopes: within 2e-6 (the kernel sums the slots in their
+    order, torch.sum in its own), one launch counted a call."""
+    c = _SAMPSYN[case]
+    bake, frames, ib, times, waves = sampsyn_window(cuda, seed=7, **c)
+    nb, bl = c["nb"], c["bl"]
+    if case == "c4_chords":
+        off, T = bake["off_f"].cpu().numpy(), int(frames[-1]) + 1
+        assert ((off > int(frames[0])) & (off < T)).any()  # off mid-window
+        assert (off >= T).any()  # an off baked ahead
+    for conf in _SAMPSYN_CONFS:
+        n0 = synthv.sampsyn_launches
+        got = synthv.sampsyn(bake, frames, nb, bl, conf, times, waves, ib)
+        torch.cuda.synchronize()
+        assert synthv.sampsyn_launches == n0 + 1
+        want = synthv.sampsyn_plain(bake, frames, nb, bl, conf, times, waves,
+                                    ib)
+        assert got.shape == want.shape == (nb * bl, 2)
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+        assert torch.equal(got[:, 0], got[:, 1])
+        if case != "empty" and conf is _SAMPSYN_CONFS[0]:
+            assert float(want.abs().max()) > 0.05
+    if case == "empty":
+        assert not bool(got.any())
+
+
+def test_sampsyn_kernel_replays_in_a_cuda_graph_on_card(cuda):
+    """Captured in a CUDA graph, the kernel reads its inputs at replay: a
+    replay equals the eager call, and again after new inputs are copied
+    into the captured tensors."""
+    conf = _SAMPSYN_CONFS[0]
+    first = sampsyn_window(cuda, 16, 1024, 8, 24, seed=3)
+    second = sampsyn_window(cuda, 16, 1024, 8, 24, seed=4)
+    bake, frames, ib, times, waves = first
+
+    def run():
+        return synthv.sampsyn(bake, frames, 16, 1024, conf, times, waves, ib)
+
+    eager = [synthv.sampsyn(a[0], a[1], 16, 1024, conf, *a[3:], a[2])
+             for a in (first, second)]
+    run()  # loaded before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager[0])
+    for k, v in second[0].items():
+        bake[k].copy_(v)
+    for dst, src in zip((frames, ib, times, waves), second[1:]):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager[1])
+
+
+def test_sampsyn_launches_one_a_window_on_card(cuda, tmp_path):
+    """A c3 render (one SampSyn vertex): each captured program holds one
+    sampsyn launch, the wrapper counts its warm-up and capture; an eager
+    window counts one more."""
+    write_c3_project(tmp_path, 2.0, 8000, 256)
+    st = load_state(tmp_path, cuda)
+    n0 = synthv.sampsyn_launches
+    st.render()
+    progs = st.compiled.programs()
+    assert progs and all(p.kernels.get("sampsyn") == 1 for p in progs)
+    assert synthv.sampsyn_launches - n0 == 2 * len(progs)
+    n1 = synthv.sampsyn_launches
+    st.fb.set_time(0)
+    st.compiled.set_time(0)
+    st.compiled.render_window(st.fb, 4, eager=True)
+    assert synthv.sampsyn_launches == n1 + 1
+
+
+def test_sampsyn_wrapper_refuses_mixes_on_card(cuda):
+    """A bake column or the table on the CPU beside CUDA frames raises
+    before any launch; CPU tensors never count a launch."""
+    conf = _SAMPSYN_CONFS[0]
+    n0 = synthv.sampsyn_launches
+    bake, frames, ib, times, waves = sampsyn_window(cuda, 4, 256, 8, 12)
+    synthv.sampsyn({k: v.cpu() for k, v in bake.items()}, frames.cpu(), 4,
+                   256, conf, times.cpu(), waves.cpu(), ib.cpu())
+    assert synthv.sampsyn_launches == n0
+    with pytest.raises(ValueError, match="on cpu"):
+        synthv.sampsyn(dict(bake, cyc=bake["cyc"].cpu()), frames, 4, 256,
+                       conf, times, waves, ib)
+    with pytest.raises(ValueError, match="on cpu"):
+        synthv.sampsyn(bake, frames, 4, 256, conf, times, waves.cpu(), ib)
+    assert synthv.sampsyn_launches == n0
+
+
 @pytest.mark.parametrize("kind", sorted(fx.EFFECTS))
 def test_effect_on_card_matches_cpu(cuda, kind):
     """Each effect over two windows at 48 kHz on the card against the CPU
@@ -480,10 +602,10 @@ def test_effect_on_card_matches_cpu(cuda, kind):
 def test_small_c4_render_on_card_matches_cpu(cuda, tmp_path):
     write_c4_project(tmp_path, 2.0, 8000, 256, render_sr=8000)
     scan.launches = scan.max_decay_launches = scan.complex_launches = 0
-    voices.launches = 0
+    voices.launches = synthv.sampsyn_launches = 0
     load_state(tmp_path, cuda).render()
     assert min(voices.launches, scan.launches, scan.max_decay_launches,
-               scan.complex_launches) > 0
+               scan.complex_launches, synthv.sampsyn_launches) > 0
     got, _ = read_wav_ints(tmp_path / "outp.wav")
     load_state(tmp_path, torch.device("cpu")).render()
     want, _ = read_wav_ints(tmp_path / "outp.wav")
@@ -969,7 +1091,7 @@ def test_sharded_windows_replay_with_nccl_inside_on_card(cuda, tmp_path):
     eager, give bit-identical audio and numeric state; every window of
     the cached one replays a captured program that holds its collectives
     (as many as the eager program issues a window, added to the mesh's
-    count by each replay) and launches all four c4 kernels; it raises
+    count by each replay) and launches all five c4 kernels; it raises
     otherwise."""
     if not torch.distributed.is_nccl_available():
         pytest.skip("needs torch.distributed's NCCL backend")
@@ -978,7 +1100,7 @@ def test_sharded_windows_replay_with_nccl_inside_on_card(cuda, tmp_path):
     r = shard_render.replay_check(
         [("c4", str(tmp_path), b"")], windows=windows, reps=1,
         need={"c4": ("voice_mix", "affine_scan", "max_decay_scan",
-                     "complex_scan")})["c4"]
+                     "complex_scan", "sampsyn")})["c4"]
     assert r["audio_bit_identical"] and r["state_bit_identical"]
     assert sorted(p["nb_total"] for p in r["programs"]) == [15, 16, 32]
     assert all(p["captured"] and p["collectives"] > 0 and p["ranks"] == 1

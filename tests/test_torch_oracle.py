@@ -353,7 +353,7 @@ class TestSampSynOracle:
             '    {0.01, 0.08, 0.7, 0.4, 0.3, 0.12}, "tbl");\n'
             'set_output("v");', device,
         )
-        got = engine_audio(st)
+        got = engine_audio(st, ["sampsyn"])
         fl = O.OracleFloww(ev, SR, BL)
         conf9 = [0.0, 0.01, 1.0, 0.08, 0.7, 0.4, 0.3, 0.12, 0.0]
         verts = {

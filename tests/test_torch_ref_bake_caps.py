@@ -678,7 +678,7 @@ set_output("sum");
         # render 1 serves the seed chain; do NOT reset time yet -- the
         # engine's own set_time(0) reset IS the remap under test
         st.fb.set_time(st.compiled.get_time())
-        with launched(device):  # a SampSyn: no hand-written kernel
+        with launched(device, "sampsyn"):
             r1 = np.concatenate([
                 host(c) for c in st.render_device()
             ])

@@ -260,7 +260,7 @@ class TestSampSynAndFx:
         )
         st.refresh()
         assert st.loaded
-        with launched(device, "affine_scan", "max_decay_scan"):
+        with launched(device, "affine_scan", "max_decay_scan", "sampsyn"):
             st.render()
         audio, _ = read_wav(out, scale=True)
         assert not np.any(np.isnan(audio))

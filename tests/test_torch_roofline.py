@@ -21,11 +21,12 @@ from termdaw_tpu.engine.state import State as RefState
 from termdaw_tpu.utils import roofline as ref_roofline
 
 from termdaw_tpu_torch.graph import compile as gc
-from termdaw_tpu_torch.ops import filters, scan, voices
+from termdaw_tpu_torch.ops import filters, scan, synthv, voices
+from termdaw_tpu_torch.ops.adsr import hit_conf
 from termdaw_tpu_torch.utils import roofline
 from termdaw_tpu_torch.utils.fixtures import (
-    load_state, read_wav_ints, write_c1_project, write_c2_project,
-    write_c3_project, write_c4_project, write_c5_project,
+    load_state, read_wav_ints, sampsyn_window, write_c1_project,
+    write_c2_project, write_c3_project, write_c4_project, write_c5_project,
 )
 
 torch.set_num_threads(1)
@@ -197,6 +198,16 @@ def _wrapper_call(name: str, rng):
         ins = (padded.numel() + 3 * nb * P) * 4
         return (voices.voice_mix_stereo, args,
                 (2 * nb * P * bl * 2, ins + nb * bl * 2 * 4))
+    if name == "sampsyn":
+        nb, bl, P, N, K, W = 6, 32, 4, 9, 2, 64
+        bake, frames, ib, times, waves = sampsyn_window(
+            CPU, nb, bl, P, N, K=K, W=W, seed=int(rng.integers(1 << 30)))
+        args = (bake, frames, nb, bl, hit_conf(0.01, 0.1, 0.8, 5.0, 0.2, 0.5),
+                times, waves, ib)
+        # the int64 frames; ib, the table, idx, six note columns and two
+        # [nb, N] clocks, 4 bytes each
+        ins = nb * bl * 8 + (bl + K + K * W + nb * P + 6 * N + 2 * nb * N) * 4
+        return synthv.sampsyn, args, (28 * nb * bl * P, ins + nb * bl * 2 * 4)
     coefs = tuple(f32(C, lo=-0.5, hi=0.5) for _ in range(5))
     args = (f32(T, C), coefs, f32(4, C))
     return (filters.biquad_apply_sequential, args,
@@ -205,7 +216,7 @@ def _wrapper_call(name: str, rng):
 
 @pytest.mark.parametrize("name", [
     "affine_scan", "max_decay_scan", "complex_affine_scan",
-    "voice_mix_stereo", "biquad_apply_sequential"])
+    "voice_mix_stereo", "biquad_apply_sequential", "sampsyn"])
 def test_kernel_wrapper_records_its_formula(name):
     fn, args, (flops, nbytes) = _wrapper_call(name, np.random.default_rng(1))
     want = fn(*args)
