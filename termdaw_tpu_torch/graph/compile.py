@@ -99,7 +99,9 @@ channel amps (compile.py:1709-1723 on the TPU).
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
+import functools
 import gc
 import itertools
 import os
@@ -117,7 +119,9 @@ from . import bake as B
 from . import graph as G
 from ..ops import envelope, filters, fx, mix, sampler, scan, synthv, voices
 from ..ops.filters import BandPassState
+from ..utils import prof
 from ..utils.prof import span
+from ..utils.term import BLUE, DEFAULT
 
 # kinds whose window kernels read absolute frames / the time table
 _FRAME_KINDS = (G.SAMPLELERP, G.DEBUGSINE, G.SYNTH, G.SAMPSYN, G.ADSR)
@@ -162,6 +166,44 @@ def _kernel_counts() -> dict[str, int]:
 
 
 _CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
+@functools.lru_cache(maxsize=1)
+def _libcuda() -> ctypes.CDLL:
+    """libcuda, CUDA's low-level API (a CUgraph is the runtime's
+    cudaGraph_t)."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    return lib
+
+
+def _graph_nodes(graph: "torch.cuda.CUDAGraph") -> int:
+    """The nodes of a captured graph, the kernels, copies and sets one
+    replay launches, read once from its cudaGraph_t (kept by
+    `keep_graph=True`) through libcuda's cuGraphGetNodes."""
+    n = ctypes.c_size_t(0)
+    rc = _libcuda().cuGraphGetNodes(graph.raw_cuda_graph(), None,
+                                    ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"reading the captured graph's nodes: CUresult "
+                           f"{rc}")
+    return int(n.value)
+
+
+def _arms(cg: "CompiledGraph") -> dict[str, int]:
+    """The window program's vertex arms by kind (an effect's by its
+    effect kind, "pluginfx.<kind>"; one under its wet gate as
+    "pluginfx.skip"); a fused SampleMulti is mixed in its consumer's arm."""
+    out: dict[str, int] = {}
+    for vi in cg.order:
+        if vi in cg._fused_members:
+            continue
+        st = cg.statics[vi]
+        kind = st.kind
+        if kind == G.PLUGINFX:
+            kind = f"pluginfx.{'skip' if st.fx_skip else st.fx_kind}"
+        out[kind] = out.get(kind, 0) + 1
+    return dict(sorted(out.items()))
 
 
 def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
@@ -210,6 +252,10 @@ class _WindowProgram:
         self.warmup_ms = self.capture_ms = 0.0
         self.pool_bytes = 0  # what its capture added to the graph's pool
         self.kernels: dict[str, int] = {}  # kernel launches captured
+        # what one replay launches (the captured graph's nodes) and the
+        # vertex arms it holds, read at capture
+        self.nodes = 0
+        self.arms: dict[str, int] = {}
 
         ints, floats, t0 = self.ints, self.floats, self.t0
 
@@ -233,7 +279,9 @@ class _WindowProgram:
         run: they are taken off the mesh's counts and kept as
         `collectives`. The caller holds _PROGRAM_LOCK: captures share the
         card's capture stream and switch the collector, so they never
-        overlap."""
+        overlap. The captured graph's `nodes` (read from the graph once)
+        and `arms` are recorded here, and
+        TERMDAW_TIMING prints them; no replay counts anything."""
         from .. import kernels
 
         kernels.load_all(dev)  # nothing may be built or loaded in capture
@@ -254,7 +302,8 @@ class _WindowProgram:
             mesh = self.mesh
             if mesh is not None:
                 calls, calls_s = mesh.collective_calls, mesh.collective_s
-            graph = torch.cuda.CUDAGraph()
+            # kept until instantiated below, so its nodes can be read
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             # a CUDAGraph freed while a stream captures destroys its
             # executable, which voids the capture: no collection of
             # garbage (from any thread) may run until the capture ends
@@ -279,6 +328,8 @@ class _WindowProgram:
                         f"capturing the window program failed in {where}: "
                         f"{e}") from e
                 graph.capture_end()
+                self.nodes = _graph_nodes(graph)
+                graph.instantiate()
             finally:
                 if collector_on:
                     gc.enable()
@@ -293,6 +344,11 @@ class _WindowProgram:
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         cg.pool_bytes += self.pool_bytes
         self.graph, self.out = graph, out
+        self.arms = _arms(cg)
+        if prof.TIMING:
+            print(f"{DEFAULT}timing: window.capture = {BLUE}"
+                  f"{self.capture_ms:.1f} ms{DEFAULT}, {BLUE}{self.nodes}"
+                  f"{DEFAULT} nodes, arms {self.arms}")
 
     def __call__(self) -> torch.Tensor:
         mesh = self.mesh
@@ -303,8 +359,10 @@ class _WindowProgram:
                 self.collectives = mesh.collective_calls - calls
         else:
             if self.graph is None:
-                with _PROGRAM_LOCK, span("window.capture"):
+                with _PROGRAM_LOCK, span("window.capture") as sp:
                     self._capture(self.ints.device)
+                    sp.attr("nodes", self.nodes)
+                    sp.attr("arms", self.arms)
             self.graph.replay()
             if mesh is not None:
                 mesh.collective_calls += self.collectives
@@ -796,12 +854,15 @@ class CompiledGraph:
         # of render windows (seed_caps' walks are not counted), windows
         # rendered sharded across ranks, window programs made for the cache
         # (a capture on CUDA) and windows run through a cached program (a
-        # replay on CUDA); the bytes the captures added to the graph's pool
+        # replay on CUDA), with the device nodes those replays launched
+        # (each program's `nodes`, counted at its capture); the bytes the
+        # captures added to the graph's pool
         self.served_windows = 0
         self.live_bakes = 0
         self.sharded_windows = 0
         self.captures = 0
         self.replays = 0
+        self.replayed_nodes = 0
         self.pool_bytes = 0
         # per-fused-group pooled event arrays, keyed by FlowwBank version
         self._pool_cache: dict[int, tuple] = {}
@@ -1750,6 +1811,7 @@ class CompiledGraph:
         fn.t0.fill_(t0)
         audio = fn()
         self.replays += 1
+        self.replayed_nodes += fn.nodes
         return audio
 
     def _fused_mix(self, consumer: int, bakes, nb: int) -> torch.Tensor:

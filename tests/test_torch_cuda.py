@@ -599,6 +599,36 @@ def test_effect_on_card_matches_cpu(cuda, kind):
                                    atol=atol)
 
 
+def test_capture_records_nodes_and_arms_on_card(cuda, tmp_path):
+    """Each captured program reads its graph's kernel, copy and set nodes
+    once, at its capture, and its vertex arms by kind; the window.capture
+    span carries both, and every replay adds its program's nodes to the
+    graph's replayed_nodes."""
+    import time
+
+    from termdaw_tpu_torch.utils import prof
+
+    write_c4_project(tmp_path, 2.0, 8000, 256, render_sr=8000)
+    st = load_state(tmp_path, cuda)
+    t0 = time.perf_counter()
+    with prof.recording():
+        st.render()
+        st.render()
+    cg = st.compiled
+    progs = cg.programs()
+    assert progs and all(p.graph is not None for p in progs)
+    # a wrapper launch of a hand-written kernel is one node or more
+    assert all(p.nodes >= sum(p.kernels.values()) > 0 for p in progs)
+    assert cg.replayed_nodes == sum(p.nodes * p.replays for p in progs) > 0
+    caps = [r for r in prof.records()
+            if r.name == "window.capture" and r.t0 >= t0]
+    assert sorted(r.attrs["nodes"] for r in caps) == sorted(
+        p.nodes for p in progs)
+    assert all(r.attrs["arms"] == p.arms for r, p in zip(caps, progs))
+    assert progs[0].arms["pluginfx.reverb"] == 1
+    assert progs[0].arms["normalize"] == 1
+
+
 def test_small_c4_render_on_card_matches_cpu(cuda, tmp_path):
     write_c4_project(tmp_path, 2.0, 8000, 256, render_sr=8000)
     scan.launches = scan.max_decay_launches = scan.complex_launches = 0
