@@ -1269,12 +1269,12 @@ def native_render(fixtures, tmp: Path, cuda, reset_counts) -> dict:
     first.write_bytes(wavs["native"][0])
     gpu, rate = fixtures.read_wav_ints(first)
     ints = gpu.astype(np.int32)
-    raw = wavio._pack24_np(ints)
+    raw = wavio._pack24_np(ints).tobytes()
     pack = turns({"native": lambda: native.pack24(ints),
                   "numpy": lambda: wavio._pack24_np(ints)})
     unpack = turns({"native": lambda: native.unpack24(raw),
                     "numpy": lambda: wavio._unpack24_np(raw)})
-    check(pack["native"][1] == pack["numpy"][1] == raw and
+    check(all(pack[k][1].tobytes() == raw for k in pack) and
           wavs["native"][0].endswith(raw), "pack24 native and numpy disagree")
     check(all(np.array_equal(unpack[k][1], ints) for k in unpack),
           "unpack24 native and numpy disagree")

@@ -34,7 +34,7 @@ from pathlib import Path
 import numpy as np
 
 from .. import native
-from ..utils.prof import span
+from ..utils.prof import Span, span
 
 WAVE_FORMAT_PCM = 0x0001
 WAVE_FORMAT_IEEE_FLOAT = 0x0003
@@ -76,22 +76,23 @@ def _unpack24_np(raw: bytes) -> np.ndarray:
     return out.astype(np.int32)
 
 
-def _pack24(vals: np.ndarray) -> bytes:
-    """Pack int32 (already clipped to 24-bit range) into little-endian 24-bit."""
-    nat = native.pack24(np.asarray(vals, np.int32))
+def _pack24(vals: np.ndarray) -> np.ndarray:
+    """Pack int32 (already clipped to 24-bit range) into little-endian
+    24-bit: a flat uint8 array, 3 bytes a sample, which a file takes as
+    it is."""
+    nat = native.pack24(vals)
     if nat is not None:
         return nat
     return _pack24_np(vals)
 
 
-def _pack24_np(vals: np.ndarray) -> bytes:
-    """_pack24's numpy body."""
-    v = vals.astype(np.int64) & 0xFFFFFF
-    out = np.empty((len(v), 3), dtype=np.uint8)
-    out[:, 0] = v & 0xFF
-    out[:, 1] = (v >> 8) & 0xFF
-    out[:, 2] = (v >> 16) & 0xFF
-    return out.tobytes()
+def _pack24_np(vals: np.ndarray) -> np.ndarray:
+    """_pack24's numpy body: the low 3 bytes of each little-endian int32,
+    with no wider pass."""
+    src = np.ascontiguousarray(vals, "<i4")
+    out = np.empty((len(src), 3), np.uint8)
+    out[:] = src.view(np.uint8).reshape(-1, 4)[:, :3]
+    return out.reshape(-1)
 
 
 def read_wav(path: str | Path, scale: bool = False) -> tuple[np.ndarray, WavSpec]:
@@ -244,25 +245,35 @@ class WavWriter:
         self._data_bytes += len(raw)
 
     def write_ints(self, ints: np.ndarray) -> None:
-        """Write already-quantized interleaved integer samples (int32 values
-        within the target bit range — e.g. the output of the device-side
-        quantize kernel, ops/quantize.py). Spans: `wav write` holding
-        `wav encode` (the widening and packing) and `wav file`."""
+        """Write already-quantized interleaved integer samples (values
+        within the target bit range: the output of the device-side
+        quantize kernel, ops/quantize.py, int16 up to 16 bits and int32
+        above). Every depth takes the low bits of each value straight
+        from the input's integer dtype; at 16 and 32 bits an input that
+        already is the file's payload (contiguous little-endian samples
+        of that width) goes to the file as it is. Spans: `wav write`
+        holding `wav encode` (attribute `copied`: the bytes the encode
+        allocated and wrote, 0 on that pass-through) and `wav file`."""
         with span("wav write"):
-            with span("wav encode"):
-                flat = np.asarray(ints).reshape(-1).astype(np.int64)
+            with span("wav encode") as sp:
+                src = np.asarray(ints)
+                flat = src.reshape(-1)
                 bits = self.bits
                 if bits == 8:
-                    raw = (flat + 128).astype(np.uint8).tobytes()
-                elif bits == 16:
-                    raw = flat.astype("<i2").tobytes()
+                    raw = flat.astype(np.uint8)
+                    raw += 128
                 elif bits == 24:
-                    raw = _pack24(flat.astype(np.int32))
+                    raw = _pack24(flat)
                 else:
-                    raw = flat.astype("<i4").tobytes()
+                    dt = np.dtype("<i2" if bits == 16 else "<i4")
+                    raw = (flat if flat.dtype == dt and flat.flags.c_contiguous
+                           else flat.astype(dt))
+                if isinstance(sp, Span):
+                    sp.attr("copied", 0 if np.may_share_memory(raw, src)
+                            else raw.nbytes)
             with span("wav file"):
                 self._f.write(raw)
-            self._data_bytes += len(raw)
+            self._data_bytes += raw.nbytes
 
     def close(self) -> None:
         if self._f.closed:

@@ -1,7 +1,9 @@
 """ctypes loader for the native C++ host library, carried over from
 termdaw_tpu/native/__init__.py so that the port imports nothing of
 termdaw_tpu. Same API and argtypes: `get_lib()`, `unpack24(raw)`,
-`pack24(vals)`, `scan_frames(buf, max_frames=4096)`; each returns None
+`pack24(vals)`, `scan_frames(buf, max_frames=4096)`, except that
+`pack24` returns the uint8 array it fills, not that array's `bytes`
+(a file takes the array as it is). Each returns None
 when the library is not loaded, and the callers in `fileio/` then take
 their numpy paths, which give the same bytes and packets (a missing
 toolchain costs speed only). TERMDAW_NATIVE=0 disables it, read at the
@@ -145,7 +147,8 @@ def unpack24(raw: bytes) -> np.ndarray | None:
     return dst
 
 
-def pack24(vals: np.ndarray) -> bytes | None:
+def pack24(vals: np.ndarray) -> np.ndarray | None:
+    """The 24-bit packing into a fresh uint8 array, 3 bytes a sample."""
     lib = get_lib()
     if lib is None:
         return None
@@ -153,7 +156,7 @@ def pack24(vals: np.ndarray) -> bytes | None:
     dst = np.empty(len(src) * 3, np.uint8)
     lib.pack24(_ptr(src), len(src), _ptr(dst))
     calls["pack24"] += 1
-    return dst.tobytes()
+    return dst
 
 
 def scan_frames(buf: bytes | bytearray, max_frames: int = 4096):

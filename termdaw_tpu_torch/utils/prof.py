@@ -24,7 +24,9 @@ trace.
   `window.capture` when a new program is warmed up and captured;
   `resample`; `quantize`), then per chunk `fetch` (attribute `bytes`:
   the wait for what the device still has queued and the copy to the
-  host) and `wav write` > `wav encode`, `wav file`; `stream feed` a
+  host) and `wav write` > `wav encode` (attribute `copied`: the bytes
+  the encode wrote, 0 where the fetched samples are the file's
+  payload), `wav file`; `stream feed` a
   packet in the stream workflow. Playback renders `window`s with no
   parent.
 * TERMDAW_PROFILE=<dir> captures a torch.profiler trace (CPU and, where

@@ -89,7 +89,7 @@ def _ints(case: str) -> np.ndarray:
 def _raw(case: str) -> bytes:
     rng = np.random.default_rng(42)
     return {
-        "edges": port_wav._pack24_np(EDGES),
+        "edges": port_wav._pack24_np(EDGES).tobytes(),
         "random": rng.integers(0, 256, 3 * 10_007, np.uint8).tobytes(),
         # a tail that is not a whole sample is dropped
         "ragged1": rng.integers(0, 256, 3 * 17 + 1, np.uint8).tobytes(),
@@ -102,14 +102,17 @@ def _raw(case: str) -> bytes:
 @pytest.mark.parametrize("case", ["edges", "random", "one", "empty", "wraps"])
 def test_pack24_equal_on_every_path(case, native_on):
     vals = _ints(case)
-    want = port_wav._pack24_np(vals)
+    want = port_wav._pack24_np(vals).tobytes()
     n0 = port_native.calls["pack24"]
-    assert port_native.pack24(vals) == want
+    assert port_native.pack24(vals).tobytes() == want
     assert port_native.calls["pack24"] == n0 + 1
     assert ref_native.pack24(vals) == want
-    assert port_wav._pack24(vals) == want
+    assert port_wav._pack24(vals).tobytes() == want
     assert port_native.calls["pack24"] == n0 + 2
     assert ref_wav._pack24(vals) == want
+    # the packers hand the file a flat uint8 array: native and numpy
+    for got in (port_native.pack24(vals), port_wav._pack24_np(vals)):
+        assert got.dtype == np.uint8 and got.shape == (3 * len(vals),)
     if case == "edges":
         assert want == bytes([0, 0, 0x80, 0xff, 0xff, 0x7f, 0, 0, 0,
                               0xff, 0xff, 0xff, 1, 0, 0, 1, 0, 0x80])
@@ -135,7 +138,8 @@ def test_unpack24_equal_on_every_path(case, native_on):
 def test_codecs_numpy_bodies_equal_the_references(case, native_off):
     vals, raw = _ints(case), _raw(case)
     n0 = dict(port_native.calls)
-    assert port_wav._pack24(vals) == ref_wav._pack24(vals)
+    assert port_native.pack24(vals) is None
+    assert port_wav._pack24(vals).tobytes() == ref_wav._pack24(vals)
     np.testing.assert_array_equal(port_wav._unpack24(raw),
                                   ref_wav._unpack24(raw))
     assert port_native.calls == n0
@@ -385,7 +389,7 @@ import termdaw_tpu_torch.native as native
 native.BUILD_DIR = Path(sys.argv[1])
 lib = native.get_lib()
 assert lib is not None, native.load_error
-assert native.pack24([1, -1]) == bytes([1, 0, 0, 255, 255, 255])
+assert native.pack24([1, -1]).tobytes() == bytes([1, 0, 0, 255, 255, 255])
 print(native.lib_path().name, native.build_seconds is not None)
 """
 
@@ -426,7 +430,7 @@ def test_a_failed_build_is_reported_and_the_numpy_paths_run(
     assert "/bin/false failed (exit 1)" in port_native.load_error
     assert not list((tmp_path / "build").iterdir())
     vals = _ints("random")
-    assert port_wav._pack24(vals) == ref_wav._pack24(vals)
+    assert port_wav._pack24(vals).tobytes() == ref_wav._pack24(vals)
     np.testing.assert_array_equal(port_wav._unpack24(_raw("random")),
                                   ref_wav._unpack24(_raw("random")))
     blob = _blob(13)
