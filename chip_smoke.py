@@ -222,18 +222,9 @@ phase 12 gates those of a replayed c4 render against its device rows.
    shares of the card's peaks where chip_peaks knows the card, and the
    bound), the reference's analytic floor beside them, and the phase's
    seconds;
-24. the benchmark harness: `python -m termdaw_tpu_torch.bench` (40 s, the
-   seven configs of its BUILDERS: c1-c5 above, c6_stream256 and
-   c7_stream1024 with 256 and 1024 streamed tracks, c7 last) in a child,
-   with jax and the JAX package blocked in each of its processes (a
-   sitecustomize on PYTHONPATH that logs every process and every blocked
-   import). Gated: exit 0, exactly one stdout line of at most 2000
-   characters, its value > 0, no error key, every config's chip and e2e
-   xRT in the line, and in the sidecar every config's chip and e2e p50
-   ms and roofline, the stream latency and the playback pacing keys; the
-   log shows the watchdog and the measuring child and no blocked import.
-   Printed: the line and the sidecar's extra. Then c6 and c7 rendered on the card from fresh
-   States (the voice mix launched, every window a replay), each WAV
+24. c6_stream256 and c7_stream1024 (utils/fixtures.py's BUILDERS: c5's
+   project with 256 and 1024 streamed tracks) rendered on the card from
+   fresh States (the voice mix launched, every window a replay), each WAV
    within phase 5's bound of the port's CPU render; and the voice mix at
    c6's and c7's shapes (the arguments of each one's first 375-block
    window, recorded from an eager window: 64 and 128 slots at 40 s, c7's
@@ -1580,79 +1571,21 @@ def window_mix_args(st, nb: int) -> tuple:
     return seen[0][:4]
 
 
-def bench_run(fixtures, tmp: Path) -> dict:
-    """Phase 24 (a): the port's benchmark entry point in a child with the
-    JAX package blocked in every process it starts, at its defaults (40 s,
-    5 repetitions, the seven configs, c7 last); its one line, its sidecar
-    and the block's log gated as the docstring says."""
-    from termdaw_tpu_torch import bench
-
-    sidecar = tmp / "bench_full.json"
-    site = fixtures.block_site(tmp / "bench_site")
-    path = os.pathsep.join(p for p in (site, os.environ.get("PYTHONPATH"))
-                           if p)
-    env = {**os.environ, "BENCH_SIDECAR": str(sidecar),
-           "BENCH_DEADLINE_S": "480", "PYTHONPATH": path}
-    t0 = time.perf_counter()
-    proc = subprocess.run(fixtures.alone_argv("termdaw_tpu_torch.bench"),
-                          cwd=ROOT, capture_output=True, text=True,
-                          timeout=540, env=env)
-    wall = time.perf_counter() - t0
-    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
-    check(proc.returncode == 0 and len(lines) == 1,
-          f"the bench exited {proc.returncode} with {len(lines)} stdout "
-          f"lines: {proc.stdout[-1500:]} {proc.stderr[-2500:]}")
-    check(len(lines[0]) <= bench.MAX_LINE_CHARS,
-          f"the bench line has {len(lines[0])} characters")
-    line = json.loads(lines[0])
-    extra = line["extra"]
-    check(line["metric"] == bench.METRIC and line["unit"] == bench.UNIT
-          and line["value"] > 0 and "error" not in line,
-          f"the bench line: {lines[0]}")
-    full = json.loads(sidecar.read_text())["extra"]
-    failed = [k for k in full if k.endswith("_error")]
-    check(not failed, f"the bench's {failed}: {[full[k] for k in failed]}")
-    for cfg in bench.BUILDERS:
-        for k in ("chip_xrt", "e2e_xrt"):
-            check(extra.get(f"{cfg}_{k}", 0) > 0,
-                  f"the bench line has no {cfg}_{k}")
-        for k in ("chip_p50_ms", "e2e_p50_ms"):
-            check(full.get(f"{cfg}_{k}", 0) > 0,
-                  f"the bench measured no {cfg}_{k}")
-        check(isinstance(full.get(f"{cfg}_util"), dict) and
-              full[f"{cfg}_util"]["gflops_per_s"] > 0,
-              f"the bench gave {cfg} no roofline")
-    for k in ("stream_latency_p50_ms", "stream_latency_p95_ms",
-              "stream_latency_ok", "playback_gen_per_wall",
-              "playback_realtime_ok", "playback_max_deficit_ms",
-              "playback_deficit_ok"):
-        check(k in extra, f"the bench line has no {k}")
-    check(full["device"]["device"] == "cuda",
-          f"the bench ran on {full['device']}")
-    procs, blocked = fixtures.block_log(site)
-    check(len(procs) >= 2 and not blocked and
-          sum("--child" in argv for argv in procs.values()) == 1,
-          f"the bench's processes: {len(procs)} logged the block "
-          f"({[a[-4:] for a in procs.values()]}), blocked imports {blocked}")
-    return {"wall_s": wall, "line_chars": len(lines[0]), "line": line,
-            "sidecar_extra": full}
-
-
 def wide_configs(fixtures, tmp: Path, cuda, cpu, reset_counts) -> dict:
-    """Phase 24 (b): c6 and c7 (bench.BUILDERS) rendered on the card from
+    """Phase 24: c6 and c7 (fixtures.BUILDERS) rendered on the card from
     fresh States, the wrapper counts set to 0 just before: every window a
     replay, the voice mix launched, the WAV within phase 5's bound of the
     port's CPU render. Then the voice mix at each one's shape, its first
     window's arguments: bit-exact to the plain version, timed beside its
     bound."""
-    from termdaw_tpu_torch import bench, kernels
+    from termdaw_tpu_torch import kernels
     from termdaw_tpu_torch.ops import voices
 
     wide = {}
     for cfg, name in (("c6", "c6_stream256"), ("c7", "c7_stream1024")):
         d = tmp / cfg
         reset_counts()
-        st = bench.build(name, d, SECONDS, cuda)
+        st = fixtures.build(name, d, SECONDS, cuda)
         st.render()
         torch.cuda.synchronize()
         gpu, rate = fixtures.read_wav_ints(d / "mix.wav")
@@ -1661,9 +1594,9 @@ def wide_configs(fixtures, tmp: Path, cuda, cpu, reset_counts) -> dict:
                              cfg)
         n = path_launches(st.compiled).get("voice_mix", 0)
         check(n > 0, f"the {cfg} render launched no voice-mix kernel")
-        bench.build(name, d, SECONDS, cpu).render()
+        fixtures.build(name, d, SECONDS, cpu).render()
         cpu_ints, _ = fixtures.read_wav_ints(d / "mix.wav")
-        a = window_mix_args(bench.build(name, d, SECONDS, cuda), C5_NB)
+        a = window_mix_args(fixtures.build(name, d, SECONDS, cuda), C5_NB)
         P = a[1].shape[1]
         check(P > 32, f"{cfg}'s voice mix has {P} slots")
         n0 = voices.launches
@@ -2782,10 +2715,9 @@ def main() -> int:
         emit("roofline", card=card, **rl,
              seconds=time.perf_counter() - t23)
 
-        # 24. the benchmark harness, then c6 and c7 on the card against
-        # the CPU and the voice mix at their shapes
+        # 24. c6 and c7 on the card against the CPU and the voice mix at
+        # their shapes
         t24 = time.perf_counter()
-        emit("bench", card=card, **bench_run(fixtures, tmp))
         wide = wide_configs(fixtures, tmp, cuda, cpu, reset_counts)
         for cfg, w in wide.items():
             per_kernel[f"voice_mix_stereo@{cfg}"] = w["voice_mix"]

@@ -18,9 +18,9 @@ loaded by either package:
   sample recorded at 96 kHz (resampled on import) -> Normalize, 32-bit.
 
 At bench.py's arguments each writer makes the files of bench.py's build
-function byte for byte (termdaw_tpu_torch/bench.py's BUILDERS; c6 and c7 are c5
-with 256 and 1024 tracks). All randomness comes from numpy generators with
-fixed seeds.
+function byte for byte. BUILDERS below maps bench.py's seven config names to
+them (c6 and c7 are c5 with 256 and 1024 tracks), and build() loads one. All
+randomness comes from numpy generators with fixed seeds.
 """
 
 from __future__ import annotations
@@ -321,6 +321,43 @@ def load_state(d: Path, device, packets: bytes = b"", mesh=None):
     if packets:
         st.fb.append_streams(PacketDecoder().feed(packets))
     return st
+
+
+# The configs (bench.py:372-567): each writer makes the project files of
+# bench.py's build function of that name in d and returns the stream
+# packets to feed after the refresh (b"" without streams).
+
+
+def _no_packets(write):
+    def writer(d: Path, length_sec: float, sr: int, bl: int) -> bytes:
+        write(d, length_sec, sr, bl)
+        return b""
+    return writer
+
+
+def _streamed(n_tracks: int):
+    def writer(d: Path, length_sec: float, sr: int, bl: int) -> bytes:
+        return write_c5_project(d, length_sec, sr, bl, n_tracks=n_tracks)
+    return writer
+
+
+BUILDERS = {
+    "c1": _no_packets(write_c1_project),
+    "c2_negadsr": _no_packets(write_c2_project),
+    "c3_synths": _no_packets(write_c3_project),
+    "c4_fullgraph": _no_packets(write_c4_project),
+    "c5_stream64": _streamed(64),
+    # the voice mix's scaling curve: 4x and 16x config 5's tracks
+    "c6_stream256": _streamed(256),
+    "c7_stream1024": _streamed(1024),
+}
+
+
+def build(name: str, d: Path, length_sec: float, device, sr: int = 48000,
+          bl: int = 1024):
+    """The refreshed State of config `name` written to d, on `device`."""
+    packets = BUILDERS[name](Path(d), length_sec, sr, bl)
+    return load_state(d, device, packets)
 
 
 def sampsyn_window(device, nb: int, bl: int, P: int, N: int, K: int = 2,

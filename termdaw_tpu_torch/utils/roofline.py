@@ -47,15 +47,10 @@ from __future__ import annotations
 import contextlib
 import functools
 import subprocess
-import sys
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-
-
-def log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
 
 
 # published peaks per card, keyed by torch.cuda.get_device_name() without
@@ -431,31 +426,3 @@ def config_roofline(st, chip_s: float, length_sec: float) -> dict | None:
             out["phys_est_exceeds_peak"] = True
         out["bound"] = bound_label(out["flop_util_pct"], hbm_pct)
     return out
-
-
-def roofline_extras(states: dict, extra: dict, length_sec: float) -> None:
-    """Fill extra[f"{name}_util"] for every config whose render time
-    extra[f"{name}_chip_p50_ms"] was measured (reference
-    roofline.py:216-238); a failure lands in extra[f"{name}_util_error"]."""
-    for name, st in states.items():
-        chip_ms = extra.get(f"{name}_chip_p50_ms")
-        if chip_ms is None:
-            continue
-        try:
-            util = config_roofline(st, chip_ms / 1e3, length_sec)
-        except Exception as e:  # one config's failure leaves the others
-            extra[f"{name}_util_error"] = str(e)[:200]
-            continue
-        if util is None:
-            extra[f"{name}_util_error"] = ("a sharded render: window_cost "
-                                           "models single-device windows")
-            continue
-        extra[f"{name}_util"] = util
-        shares = ""
-        if "bound" in util:
-            hbm = util.get("hbm_util_pct_phys_est", util["hbm_util_pct"])
-            shares = (f" -> {util['flop_util_pct']:.3g}% f32 / {hbm:.3g}% "
-                      f"HBM ({util['bound']}-bound)")
-        log(f"{name} on {util['card']}: {util['gflops_per_s']:.4g} GFLOP/s, "
-            f"{util['hbm_gbps_logical']:.4g} GB/s logical "
-            f"({util['hbm_gbps_phys_est']:.4g} GB/s phys-est){shares}")

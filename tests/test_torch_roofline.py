@@ -324,7 +324,3 @@ def test_config_roofline_on_the_cpu(tmp_path):
     assert out["window_gflops"] * 1e9 == pytest.approx(
         windows + roofline._resampler_flops(st, LENGTH), rel=1e-12)
     assert st.compiled.get_time() == 0 and st.fb.frame == 0
-    extra = {"c1_chip_p50_ms": 50.0}
-    roofline.roofline_extras({"c1": st, "c2": st}, extra, LENGTH)
-    assert extra["c1_util"]["window_gflops"] == out["window_gflops"]
-    assert "c2_util" not in extra and "c2_util_error" not in extra
