@@ -15,7 +15,8 @@ phase 12 gates those of a replayed c4 render against its device rows.
 
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
 2. build: compiles every kernel (csrc/voice_mix.cu, affine_scan.cu,
-   max_decay_scan.cu, complex_scan.cu, biquad_seq.cu, sampsyn.cu) with nvcc for
+   max_decay_scan.cu, complex_scan.cu, biquad_seq.cu, sampsyn.cu, eq3.cu)
+   with nvcc for
    sm_90a, one nvcc process each, all in parallel, and prints each
    compiled kernel's registers, shared memory and spills (ptxas); the
    exact lane's SASS (cuobjdump) must hold no FFMA;
@@ -63,8 +64,9 @@ phase 12 gates those of a replayed c4 render against its device rows.
    conjugate pair at 20 Hz), checked as phase 4's slow pole;
 10. c4 end to end (the reference's demo project with the reverb ->
    compressor -> eq3 -> delay chain, 48 kHz / 1024, 40 s -> 44.1 kHz
-   16-bit): refresh + render on cuda, which must launch all five kernels,
-   and the WAV against the port's CPU render, as in phase 5; then the
+   16-bit): refresh + render on cuda, which must launch all five kernels
+   of its path (the voice mix, affine and max-decay scans, SampSyn and the
+   eq3; the complex scan only runs sharded), and the WAV against the port's CPU render, as in phase 5; then the
    project's own SampSyn windows, run eager (375 blocks each, the whole
    40 s): each window's sampsyn call on the card (the kernel) against
    sampsyn_plain on the same bake, frames and in-block clock, within
@@ -98,7 +100,8 @@ phase 12 gates those of a replayed c4 render against its device rows.
    latency of its serial chain (12 cycles a frame at 1.98 GHz);
 14. c4 with TERMDAW_EXACT_BIQUAD=1 on the card: the render's replays
    launch the kernel 20 times (its programs' captured launches times
-   their replays) and the complex scan never; the median of 5 walls;
+   their replays) and the complex scan and the eq3 kernel never; the
+   median of 5 walls;
    the distance in 16-bit counts to phase 10's default-lane render
    (gated at 2e-3 of full scale); the project cut to 1 s rendered on the
    card and on the CPU within one count;
@@ -252,7 +255,7 @@ phase 12 gates those of a replayed c4 render against its device rows.
    alone, then in two rounds two fresh States rendered from two threads
    at once after the program cache is cleared (both capture together):
    each WAV bit-identical to its lane's render alone, the exact lane's
-   programs holding csrc/biquad_seq.cu, the cascade's the complex scan;
+   programs holding csrc/biquad_seq.cu, the cascade's csrc/eq3.cu;
    (b) 30 feed/render cycles on c5 (one event fed to a stream each): every
    render finite, the chains within their budget, a capture only in the
    first cycle or where the bake caps grew, and the reserved memory over
@@ -261,6 +264,19 @@ phase 12 gates those of a replayed c4 render against its device rows.
    child with jax and the JAX package blocked: exit 0, every collected
    card case passed, none skipped. Printed: the walls, captures and
    capture ms, the reserved MB a cycle, the pytest counts and wall.
+27. the eq3 kernel (csrc/eq3.cu, fx.eq3_crossover): at c8's and c4's window
+   ([384,000, 2] in; one of c8's crossover pairs and c4's), two windows
+   with the state carried, against the plain composition (fx.eq3_plain:
+   biquad_apply and the complex scan), within 1e-4 of max |y|, audio and
+   state; its device ms (20 calls captured in a CUDA graph, replayed
+   between CUDA events) beside its bound (the wrapper's work, the four
+   stages' [T, 4] read and written once, at 3.35 TB/s; and the floor of x
+   read and y written once) and the plain composition's ms. Then c8
+   (benchmark/projects/mix_session.py, its 64 tracks and master eq3) on the
+   card: each pass of its window program, the eager warm-up and the
+   capture, adds 65 to `eq3_launches` and nothing to `complex_launches`
+   (every program captured 65 eq3 launches, one an eq3 arm), and so does
+   an eager window.
 
 Then the card line, the kernels line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -694,7 +710,8 @@ def profile_render(st) -> dict:
     device time in all and in each of the port's kernels, device rows, and
     the device busy share of the profiled wall. In the replayed render
     each kernel's calls on the card (its device rows, a tiled scan's
-    tile_scan rows: a call may add a tile_reduce) must equal its programs'
+    tile_scan rows: a call may add a tile_reduce; an eq3 call is four
+    stages, a tile_scan each) must equal its programs'
     captured launches times their replays (path_launches); a trace that
     lost rows is taken again. The third, eager too, with each effect
     fenced (see profiled_render; a replay cannot synchronize inside an
@@ -713,13 +730,14 @@ def profile_render(st) -> dict:
         for k, name in (("voice_mix", "voice_mix_kernel"),
                         ("affine_scan", "AffineScanOp"),
                         ("max_decay_scan", "MaxDecayScanOp"),
-                        ("complex_scan", "ComplexScanOp"),
+                        ("eq3", "Eq3Stage"),
                         ("sampsyn", "sampsyn_kernel")):
             ks = [e for e in dev if name in e.name]
             calls = [e for e in ks if k in ("voice_mix", "sampsyn")
                      or "tile_scan" in e.name]
             mine[k] = {"ms": ms(ks), "device_kernels": len(ks),
-                       "device_calls": len(calls)}
+                       "device_calls": len(calls) // (4 if k == "eq3"
+                                                      else 1)}
         return {"wall_ms": wall * 1e3, "device_ms": device_ms,
                 "device_busy_share": device_ms / (wall * 1e3),
                 "device_launches": len(dev), "kernels": mine}
@@ -747,14 +765,12 @@ def profile_render(st) -> dict:
     fx_ms = {name: ms(e for e in fdev if any(
         lo <= e.time_range.start < hi for lo, hi in spans))
         for name, spans in ranges.items()}
-    eq3_complex = ms(e for e in fdev if "ComplexScanOp" in e.name)
+    eq3_kernel = ms(e for e in fdev if "Eq3Stage" in e.name)
     return {"graphs": graphs, "eager": eager,
             "effects_device_ms": fx_ms,
             "effects_share_of_device": sum(fx_ms.values()) / ms(fdev),
-            # every complex scan of c4 runs in the eq3: a check of the
-            # attribution
-            "eq3_holds_complex_scans": fx_ms.get("fx:eq3", 0.0) >=
-            eq3_complex,
+            # the eq3 kernel runs in the eq3: a check of the attribution
+            "eq3_holds_its_kernel": fx_ms.get("fx:eq3", 0.0) >= eq3_kernel,
             "windows": -(-st.cs // render_chunk_blocks(st.cs))}
 
 
@@ -977,6 +993,33 @@ def kernel_event_ms(fn, reps: int) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device ms a call of a wrapper whose host dispatch outlasts its
+    kernels: `reps` calls captured in one CUDA graph, replayed between
+    CUDA events. The profiler loses rows of many-kernel calls late in
+    this process, and back-to-back events would time the host."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
 
 
 def eq3_stage_inputs(T: int, seed: int):
@@ -1251,7 +1294,7 @@ def native_render(fixtures, tmp: Path, cuda, reset_counts) -> dict:
     st = sts["native"]
     replays = check_replays(st, "c4 at 24 bits")
     launches = path_launches(st.compiled)
-    for k in ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan",
+    for k in ("voice_mix", "affine_scan", "max_decay_scan", "eq3",
               "sampsyn"):
         check(launches.get(k, 0) > 0,
               f"the 24-bit c4 render launched no {k} kernel")
@@ -1692,14 +1735,14 @@ def concurrent_renders(fixtures, tmp: Path, cuda) -> dict:
     warm up and capture their programs together. Each WAV must be
     bit-identical to its lane's isolated render, every window a replay of
     a captured program, the exact lane's programs holding
-    csrc/biquad_seq.cu and no complex scan, the cascade's the reverse."""
+    csrc/biquad_seq.cu and not csrc/eq3.cu, the cascade's the reverse."""
     import threading
 
     from termdaw_tpu_torch.graph import compile as gcompile
 
     lanes = {"exact": "1", "cascade": "0"}
-    need = {"exact": ("biquad_seq", "complex_scan"),
-            "cascade": ("complex_scan", "biquad_seq")}
+    need = {"exact": ("biquad_seq", "eq3"),
+            "cascade": ("eq3", "biquad_seq")}
     dirs = {lane: tmp / f"c4_{lane}" for lane in lanes}
     for d in dirs.values():
         fixtures.write_c4_project(d, SECONDS, SR, BL)
@@ -1889,6 +1932,101 @@ def ref_suites_run(fixtures, tmp: Path) -> dict:
             "wall_s": wall, "summary": run.stdout.strip().splitlines()[-1]}
 
 
+# phase 27: c8's crossovers (one of projects/mix_session.EQ_LOW x EQ_HIGH)
+# and c4's, the gains of a strip, and the kernel's bound against the plain
+# composition, relative to max |y| (tests/test_torch_cuda.py's from 100 Hz)
+EQ3_PAIRS = {"c8": (150.0, 3000.0), "c4": (180.0, 4000.0)}
+EQ3_DB = (3.0, -2.0, 1.5)
+EQ3_RTOL = 1e-4
+C8_EQ3S = 65  # 64 channel strips and the master
+
+
+def eq3_phase(fixtures, tmp: Path, cuda, reset_counts) -> dict:
+    """Phase 27: fx.eq3_crossover at [SCAN_T, 2] for each of EQ3_PAIRS,
+    two windows chained, against fx.eq3_plain on the card (audio and
+    states), timed beside its bound and the plain composition; then c8's
+    window program: the wrapper's launches each pass."""
+    from benchmark.projects import mix_session
+    from termdaw_tpu_torch.engine.state import render_chunk_blocks
+    from termdaw_tpu_torch.ops import fx, scan
+
+    sr = SR
+    eff = fx.EFFECTS["eq3"]
+    gen = np.random.default_rng(27)
+    db = tuple(torch.tensor(g, dtype=torch.float32, device=cuda)
+               for g in EQ3_DB)
+    out: dict = {"T": SCAN_T, "rtol_plain": EQ3_RTOL, "kernel": {}}
+    for name, (lo, hi) in EQ3_PAIRS.items():
+        static = fx.bind_static(eff, sr, {"low_freq": lo, "high_freq": hi},
+                                cuda)
+        xs = [torch.from_numpy((0.3 * gen.normal(size=(SCAN_T, 2)))
+                               .astype(np.float32)).to(cuda)
+              for _ in range(2)]
+        sk = sp = eff.init_state(sr, static, cuda)
+        err = serr = scale = 0.0
+        for x in xs:
+            yk, sk = fx.eq3_crossover(x, sk, db, static["coefs"],
+                                      static["sections"])
+            yp, sp = fx.eq3_plain(x, sp, fx._eq3_gains(db, x),
+                                  static["coefs"])
+            scale = max(scale, 1.0, float(yp.abs().max()))
+            err = max(err, float((yk - yp).abs().max()))
+            serr = max(serr, max(float((sk[k] - sp[k]).abs().max())
+                                 for k in sp))
+        check(err <= EQ3_RTOL * scale and serr <= EQ3_RTOL * scale,
+              f"eq3 at {name}'s window: kernel vs plain {err} (state "
+              f"{serr}) > {EQ3_RTOL} * {scale}")
+        x, st = xs[0], eff.init_state(sr, static, cuda)
+        call = (x, st, db, static["coefs"], static["sections"])
+        ms = graph_ms(lambda: fx.eq3_crossover(*call))
+        b = bound(fx.eq3_crossover_work(*call))
+        io = bound((0.0, 2 * SCAN_T * 2 * 4.0))  # x read, y written
+        out["kernel"][name] = dict(
+            crossovers=[lo, hi], kernel_vs_plain=err, state_vs_plain=serr,
+            max_abs_y=scale, ms=ms, call_ms=event_ms(
+                lambda: fx.eq3_crossover(*call), 50),
+            plain_ms=event_ms(lambda: fx.eq3_plain(
+                x, st, fx._eq3_gains(db, x), static["coefs"]), 20),
+            **b, bound_share=b["bound_ms"] / ms, io_bound_ms=io["bound_ms"],
+            io_bound_share=io["bound_ms"] / ms)
+
+    # c8's window program: every pass adds C8_EQ3S launches, none of the
+    # complex scan
+    cfg = json.loads((ROOT / "benchmark" / "configs" / "c8_mix64.json")
+                     .read_text())
+    d8 = tmp / "c8"
+    mix_session.build(cfg, 27, d8)
+    st8 = fixtures.load_state(d8, cuda)
+    reset_counts()
+    st8.render()
+    torch.cuda.synchronize()
+    cg = st8.compiled
+    progs = cg.programs()
+    replays = check_replays(st8, "c8")
+    for p in progs:
+        check(p.kernels.get("eq3") == C8_EQ3S == p.arms.get("pluginfx.eq3")
+              and "complex_scan" not in p.kernels,
+              f"a c8 program captured {p.kernels} for the arms {p.arms}")
+    check(fx.eq3_launches == 2 * C8_EQ3S * len(progs) and
+          scan.complex_launches == 0,
+          f"c8: {fx.eq3_launches} eq3 and {scan.complex_launches} complex "
+          f"launches over {len(progs)} programs' warm-ups and captures")
+    passes = fx.eq3_launches
+    st8.fb.set_time(0)
+    cg.set_time(0)
+    cg.render_window(st8.fb, render_chunk_blocks(st8.cs), eager=True)
+    torch.cuda.synchronize()
+    check(fx.eq3_launches == passes + C8_EQ3S and scan.complex_launches == 0,
+          f"an eager c8 window added {fx.eq3_launches - passes} eq3 launches")
+    out["c8"] = {"programs": len(progs), "eq3_a_pass": C8_EQ3S,
+                 "captured": [p.kernels for p in progs],
+                 "wrapper_launches": passes, "eager_window_added":
+                 fx.eq3_launches - passes,
+                 "complex_launches": scan.complex_launches,
+                 "nodes": [p.nodes for p in progs], **replays}
+    return out
+
+
 def main() -> int:
     # 1. environment
     if not torch.cuda.is_available():
@@ -1913,7 +2051,7 @@ def main() -> int:
     from termdaw_tpu_torch import kernels
     from termdaw_tpu_torch.engine.player import Player
     from termdaw_tpu_torch.graph import compile as gcompile
-    from termdaw_tpu_torch.ops import filters, scan, synthv, voices
+    from termdaw_tpu_torch.ops import filters, fx, scan, synthv, voices
     from termdaw_tpu_torch.ops.adsr import AdsrConf
     from termdaw_tpu_torch.utils import fixtures
 
@@ -1923,6 +2061,7 @@ def main() -> int:
         voices.launches = scan.launches = 0
         scan.max_decay_launches = scan.complex_launches = 0
         filters.biquad_seq_launches = synthv.sampsyn_launches = 0
+        fx.eq3_launches = 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -2187,13 +2326,15 @@ def main() -> int:
         check_wrapper_counts(st4.compiled, {
             "voice_mix": voices.launches, "affine_scan": scan.launches,
             "max_decay_scan": scan.max_decay_launches,
-            "complex_scan": scan.complex_launches,
+            "complex_scan": scan.complex_launches, "eq3": fx.eq3_launches,
             "sampsyn": synthv.sampsyn_launches}, "c4")
         c4_counts = path_launches(st4.compiled)
-        for k in ("voice_mix", "affine_scan", "max_decay_scan",
-                  "complex_scan", "sampsyn"):
+        for k in ("voice_mix", "affine_scan", "max_decay_scan", "eq3",
+                  "sampsyn"):
             check(c4_counts.get(k, 0) > 0,
                   f"the c4 render launched no {k} kernel")
+        check(scan.complex_launches == 0,
+              "the c4 render launched the complex scan off a mesh")
         _, cpu4, _ = render_wav(fixtures, d4, cpu, b"", d4 / "outp.wav")
         emit("c4_end_to_end", seconds=SECONDS, sr=SR, render_sr=44100,
              bd=16, launches=c4_counts, **c4_replays,
@@ -2346,7 +2487,8 @@ def main() -> int:
                                              d4 / "outp.wav")
             c4x_wall = time.perf_counter() - t0
             c4x_counts = {"biquad_seq": filters.biquad_seq_launches,
-                          "complex_scan": scan.complex_launches}
+                          "complex_scan": scan.complex_launches,
+                          "eq3": fx.eq3_launches}
             check(st4x.compiled.exact_biquad, "the flag was not read")
             c4x_replays = check_replays(st4x, "c4 on the exact lane")
             check_wrapper_counts(st4x.compiled, c4x_counts,
@@ -2356,9 +2498,10 @@ def main() -> int:
             check(replayed.get("biquad_seq", 0) == 20,
                   f"the exact-lane c4 render replayed biquad_seq "
                   f"{replayed.get('biquad_seq', 0)} times, not 20")
-            check(scan.complex_launches == 0 and
-                  "complex_scan" not in replayed, "the exact-lane c4 render "
-                  "launched the complex scan")
+            check(scan.complex_launches == fx.eq3_launches == 0 and
+                  "complex_scan" not in replayed and "eq3" not in replayed,
+                  "the exact-lane c4 render launched the complex scan or "
+                  "the eq3 kernel")
             check(rate4x == 44100 and gpu4x.shape == gpu4.shape,
                   "exact-lane c4 WAV format")
             lanes_diff = int(np.abs(gpu4x - gpu4).max())
@@ -2399,6 +2542,7 @@ def main() -> int:
                          "affine_scan": scan.launches,
                          "max_decay_scan": scan.max_decay_launches,
                          "complex_scan": scan.complex_launches,
+                         "eq3": fx.eq3_launches,
                          "sampsyn": synthv.sampsyn_launches}
         # the programs still cached (a longer time table drops the others)
         sess_launches = path_launches(sst.compiled)
@@ -2740,6 +2884,15 @@ def main() -> int:
         emit("ref_suites", card=card, **ref_suites_run(fixtures, tmp),
              seconds=time.perf_counter() - t26)
 
+        # 27. the eq3 kernel at c8's and c4's window, and c8's window
+        # program's eq3 launches
+        t27 = time.perf_counter()
+        eq3_res = eq3_phase(fixtures, tmp, cuda, reset_counts)
+        per_kernel["eq3_crossover"] = eq3_res["kernel"]["c4"]
+        eq3_err = eq3_res["kernel"]["c4"]["kernel_vs_plain"]
+        emit("eq3_kernel", card=card, seconds=time.perf_counter() - t27,
+             **eq3_res)
+
     print(card, flush=True)
     # launches: what each kernel's main-path render ran on the card (its
     # programs' replays and warm-ups, path_launches): c5's for the voice
@@ -2751,9 +2904,15 @@ def main() -> int:
          c4_counts["affine_scan"], scan_err),
         ("max_decay_scan", "max_decay_scan", "termdaw_tpu/ops/fx.py:63",
          c4_counts["max_decay_scan"], mres["kernel_vs_plain"]),
+        # the sharded eq3's now (phases 18 and 21): 0 on c4's path
         ("complex_affine_scan", "complex_scan",
-         "termdaw_tpu/ops/filters.py:316", c4_counts["complex_scan"],
+         "termdaw_tpu/ops/filters.py:316", c4_counts.get("complex_scan", 0),
          max(cres[p]["kernel_vs_plain"] for p in ("re", "im"))),
+        # the eq3 arm on one device: c4's eq3 windows; its error is phase
+        # 27's at c4's window
+        ("eq3_crossover", "eq3",
+         "termdaw_tpu/ops/filters.py:316 and :357 (the eq3's biquads)",
+         c4_counts["eq3"], eq3_err),
         # the exact lane's path is phase 14's flag-on c4 render; its error
         # is phase 13's at the eq3 stage shape [384,000, 4]
         ("biquad_seq", "biquad_seq", "termdaw_tpu/ops/filters.py:384",
@@ -2780,7 +2939,8 @@ def main() -> int:
         "bound_ms": per_kernel[name]["bound_ms"],
         "bound_by": per_kernel[name]["bound_by"],
         # no single PyTorch call computes a first-order recurrence, a
-        # max-decay scan, the voice mix, a biquad or the SampSyn arm
+        # max-decay scan, the voice mix, a biquad, the SampSyn arm or the
+        # eq3's crossover tree
         "library_ms": None,
     } for name, src, replaces, n, err in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -57,10 +57,18 @@
 //
 // The scratch planes (each tile's B, per lane) are allocated by the
 // caller (kernels.py); the kernels allocate nothing.
+//
+// An Op may bring its own argument struct (`Op::Args`, else `Args`) and,
+// with `Op::kOwnIO`, its own tile load and store (`Op::load`,
+// `Op::store`) in place of the plane copies: the eq3's stages
+// (csrc/eq3.cu) compute their feed-forward taps while they load and
+// their band sum and state while they store.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace scan_tile {
 
@@ -79,6 +87,21 @@ struct Args {
   const float* s[2];
   float* y[2];
 };
+
+template <class Op, class = void>
+struct ArgsOf {
+  using type = Args;
+};
+template <class Op>
+struct ArgsOf<Op, std::void_t<typename Op::Args>> {
+  using type = typename Op::Args;
+};
+
+template <class Op, class = void>
+struct OwnIO : std::false_type {};
+template <class Op>
+struct OwnIO<Op, std::void_t<decltype(Op::kOwnIO)>>
+    : std::bool_constant<Op::kOwnIO> {};
 
 // Where this CTA's tile lies, and this thread's run in it. In shared
 // memory the tile keeps its layout in the plane: frame r, lane l at
@@ -170,6 +193,17 @@ __device__ __forceinline__ void store_tile(float* const* g, const float* sm,
   }
 }
 
+// The tile's input planes into sm: the Op's own load, or load_tile.
+template <class Op, int CL>
+__device__ __forceinline__ void load(const typename ArgsOf<Op>::type& args,
+                                     float* sm, int plane,
+                                     const TilePos<CL>& at, int C, bool vec) {
+  if constexpr (OwnIO<Op>::value)
+    Op::load(args, sm, plane, at, C);
+  else
+    load_tile<CL, Op::kPlanes>(args.x, sm, plane, at, C, vec);
+}
+
 // Fold this thread's run into one map.
 template <class Op, int CL>
 __device__ __forceinline__ typename Op::Map fold_run(
@@ -238,15 +272,16 @@ union WarpTotals {
 // Each tile's total map: its B part into the agg planes [tiles, C].
 template <class Op, int CL>
 __global__ void __launch_bounds__(kThreads)
-tile_reduce(Args args, long long T, int C, int K, long long S, bool vec,
-            float* __restrict__ agg, long long agg_plane) {
+tile_reduce(typename ArgsOf<Op>::type args, long long T, int C, int K,
+            long long S, bool vec, float* __restrict__ agg,
+            long long agg_plane) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
   __shared__ WarpTotals<Op, CL> wt;
   const int plane = kThreads * K;
   const TilePos<CL> at(T, C, K, S);
   const typename Op::Param pa = Op::param(args, at.c);
-  load_tile<CL, Op::kPlanes>(args.x, sm, plane, at, C, vec);
+  load<Op, CL>(args, sm, plane, at, C, vec);
   __syncthreads();
   typename Op::Map total;
   block_scan<Op, CL>(fold_run<Op, CL>(sm, plane, at, pa), wt.f, total);
@@ -260,7 +295,8 @@ tile_reduce(Args args, long long T, int C, int K, long long S, bool vec,
 // scanned with block_scan. A = a^S by repeated squaring of the f32 pole.
 template <class Op, int CL>
 __device__ __forceinline__ typename Op::State carry_in(
-    const Args& args, const TilePos<CL>& at, int C, long long S,
+    const typename ArgsOf<Op>::type& args, const TilePos<CL>& at, int C,
+    long long S,
     const float* __restrict__ agg, long long agg_plane,
     typename Op::DMap* wagg) {
   using DMap = typename Op::DMap;
@@ -289,15 +325,16 @@ __device__ __forceinline__ typename Op::State carry_in(
 // agg is null: one tile), written to y.
 template <class Op, int CL>
 __global__ void __launch_bounds__(kThreads)
-tile_scan(Args args, long long T, int C, int K, long long S, bool vec,
-          const float* __restrict__ agg, long long agg_plane) {
+tile_scan(typename ArgsOf<Op>::type args, long long T, int C, int K,
+          long long S, bool vec, const float* __restrict__ agg,
+          long long agg_plane) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
   __shared__ WarpTotals<Op, CL> wt;
   const int plane = kThreads * K;
   const TilePos<CL> at(T, C, K, S);
   const typename Op::Param pa = Op::param(args, at.c);
-  load_tile<CL, Op::kPlanes>(args.x, sm, plane, at, C, vec);
+  load<Op, CL>(args, sm, plane, at, C, vec);
   typename Op::State s =
       agg ? carry_in<Op, CL>(args, at, C, S, agg, agg_plane, wt.d)
           : Op::init(args, at.c);
@@ -316,7 +353,10 @@ tile_scan(Args args, long long T, int C, int K, long long S, bool vec,
     Op::put(s, sm, plane, i);
   }
   __syncthreads();
-  store_tile<CL, Op::kPlanes>(args.y, sm, plane, at, C, vec);
+  if constexpr (OwnIO<Op>::value)
+    Op::store(args, sm, plane, at, C);
+  else
+    store_tile<CL, Op::kPlanes>(args.y, sm, plane, at, C, vec);
 }
 
 // Dynamic shared memory of a tile: K frames a run, kThreads runs.

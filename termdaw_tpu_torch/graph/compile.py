@@ -162,7 +162,7 @@ def _kernel_counts() -> dict[str, int]:
             "max_decay_scan": scan.max_decay_launches,
             "complex_scan": scan.complex_launches,
             "biquad_seq": filters.biquad_seq_launches,
-            "sampsyn": synthv.sampsyn_launches}
+            "sampsyn": synthv.sampsyn_launches, "eq3": fx.eq3_launches}
 
 
 _CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}

@@ -13,7 +13,9 @@ max_decay_scan.cu on csrc/scan_tile.cuh) take their tiling from
 the voice mix takes its regime, grid and shared memory from
 `voice_mix_plan`; the exact biquad lane (biquad_seq.cu) plans its own
 one-CTA-per-32-channels grid; the SampSyn arm (sampsyn.cu) takes the
-envelope's and the table's constants as a `SampSynParams`.
+envelope's and the table's constants as a `SampSynParams`; the eq3's
+crossover tree (eq3.cu, four stages of the tiled scan) takes its run
+length from `scan_plan(T, 4, "eq3")` and its scratch from `eq3_launch`.
 
 nvcc is looked up in `$CUDA_HOME/bin`, then `/usr/local/cuda/bin`, then
 `PATH`.
@@ -42,7 +44,7 @@ NVCC_FLAGS = (
 
 # every csrc/<name>.cu of the port
 KERNELS = ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan",
-           "biquad_seq", "sampsyn")
+           "biquad_seq", "sampsyn", "eq3")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -176,6 +178,12 @@ def sampsyn_lib() -> ctypes.CDLL:
                  [vp] * 13 + [ci] * 6 + [vp, vp, vp])
 
 
+def eq3_lib() -> ctypes.CDLL:
+    vp = ctypes.c_void_p
+    return _load("eq3", "eq3_launch",
+                 [vp] * 15 + [ctypes.c_longlong, ctypes.c_int, vp])
+
+
 def load_all(device: torch.device) -> None:
     """Build every kernel (in parallel) and load its library on `device`:
     what a CUDA-graph capture needs done before it starts, since nothing
@@ -191,8 +199,17 @@ def load_all(device: torch.device) -> None:
 SCAN_THREADS = 256            # scan_tile.cuh kThreads
 SCAN_SHARED_BYTES = 48 * 1024  # scan_tile.cuh kSharedBytes
 # each tiled scan's op: (input planes, bytes of one per-warp total, the
-# larger of sizeof(Op::Map) and sizeof(Op::DMap))
-SCAN_OPS = {"affine": (1, 16), "max_decay": (1, 16), "complex": (2, 32)}
+# larger of sizeof(Op::Map) and sizeof(Op::DMap)); "eq3" is a stage of
+# csrc/eq3.cu, whose tiles' totals keep 4 planes of scratch (its
+# SCAN_AGG_PLANES), the others as many as they have input planes
+SCAN_OPS = {"affine": (1, 16), "max_decay": (1, 16), "complex": (2, 32),
+            "eq3": (1, 80)}
+SCAN_AGG_PLANES = {"eq3": 4}
+# an op's run length on long timelines where it is not scan_plan's rule:
+# an eq3 stage at c8's window (T = 384,000) took 82.7 us a call with runs
+# of 23 frames, 91.3 with 31, 119.9 with 15 and 106.3 with 45 (H100,
+# PERF.md): its tiles' carry-in, not its bytes, sets the time
+SCAN_RUNS = {"eq3": 23}
 
 
 class ScanPlan(NamedTuple):
@@ -215,7 +232,9 @@ def scan_plan(T: int, C: int, op: str) -> ScanPlan:
     one kernel (the delay line's 67 rows). Longer ones are cut into tiles
     of about 2048 frames for at most 4 lanes (runs of 8 * CL - 1 frames,
     fewer where shared memory ends) and runs of 7 frames for wider rows,
-    combined reduce-then-scan with planes * tiles * C floats of scratch;
+    combined reduce-then-scan with planes * tiles * C floats of scratch
+    (SCAN_AGG_PLANES's count of planes where an op keeps another) and
+    SCAN_RUNS's run where an op has its own;
     a timeline that one such tile covers takes the shortest odd run that
     covers it."""
     planes, total_bytes = SCAN_OPS[op]
@@ -228,15 +247,16 @@ def scan_plan(T: int, C: int, op: str) -> ScanPlan:
     k_max -= 1 - k_max % 2
     k = -(-T // runs)
     if k > 16:
-        run = min(8 * cl - 1, k_max) if cl <= 4 else 7
+        run = min(SCAN_RUNS.get(op, 8 * cl - 1 if cl <= 4 else 7), k_max)
         k = k | 1 if k <= run else run
     elif cl < 32:
         k |= 1
     s = runs * k
     tiles = -(-T // s)
+    agg = SCAN_AGG_PLANES.get(op, planes)
     return ScanPlan(cl, k, s, tiles, -(-C // cl),
                     SCAN_THREADS * k * 4 * planes,
-                    planes * tiles * C if tiles > 1 else 0)
+                    agg * tiles * C if tiles > 1 else 0)
 
 
 def _scratch(plan: ScanPlan, like: torch.Tensor):
@@ -398,3 +418,26 @@ def sampsyn_launch(frames: torch.Tensor, ib: torch.Tensor, cols: tuple,
                 ctypes.addressof(params), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sampsyn kernel launch failed: CUDA error {rc}")
+
+
+def eq3_launch(x: torch.Tensor, sections: torch.Tensor, states: tuple,
+               gains_db: tuple, t01: torch.Tensor, t1: torch.Tensor,
+               y: torch.Tensor, state_out: torch.Tensor) -> None:
+    """Launch csrc/eq3.cu's four stages on the tensors' device and current
+    stream: x, y [T, 2]; sections [2, 7, 4]; states four [4, 4]; gains_db
+    three 0-d gains in dB; t01, t1 [T, 4] the stages' outputs; state_out
+    [4, 4, 4]; all float32 and contiguous, runs of scan_plan(T, 4, "eq3")
+    with its scratch. The caller (ops/fx.eq3_crossover) has checked them;
+    raises if a launch is refused."""
+    T = x.shape[0]
+    plan = scan_plan(T, 4, "eq3")
+    fn = eq3_lib().eq3_launch
+    with torch.cuda.device(y.device):
+        scratch, ptr = _scratch(plan, y)
+        rc = fn(x.data_ptr(), sections[0].data_ptr(), sections[1].data_ptr(),
+                *(t.data_ptr() for t in states + tuple(gains_db)),
+                t01.data_ptr(), t1.data_ptr(), y.data_ptr(),
+                state_out.data_ptr(), ptr, T, plan.k,
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"eq3 kernel launch failed: CUDA error {rc}")

@@ -26,10 +26,12 @@ The effects' building blocks:
 * `first_order_scan` (filters.py:158-175): a one-pole IIR through
   ops/scan.affine_scan, returning the window and its last value;
 * `prev_frames` (filters.py:178-203): the halo of the previous M frames;
-* `biquad_coefs`, `biquad_init_state`, `biquad_apply` (filters.py:357-534):
-  the direct-form-1 biquad as a cascade of two first-order complex
-  recurrences through its poles, each one ops/scan.complex_affine_scan
-  (the hand-written CUDA kernel on the card);
+* `biquad_coefs`, `biquad_init_state`, `biquad_poles`, `biquad_apply`
+  (filters.py:357-534): the direct-form-1 biquad as a cascade of two
+  first-order complex recurrences through its poles, each one
+  ops/scan.complex_affine_scan (the hand-written CUDA kernel on the card;
+  the eq3 on one device runs its four sections as one kernel instead,
+  ops/fx.eq3_crossover);
 * the exact sequential lane (filters.py:384-441): `biquad_apply_sequential`
   runs the recurrence frame by frame in the reference's order, each
   multiply and add rounded on its own; `biquad_apply` takes it instead of
@@ -396,6 +398,20 @@ def _first_order_complex(f_r, f_i, p_r, p_i, s_r, s_i,
     return (u_r, u_i, *apply(tot))
 
 
+def biquad_poles(a1, a2, C: int, device: torch.device):
+    """The poles p1, p2 of a section, the roots of z^2 + a1 z + a2 in f32
+    per channel (a real pair or a conjugate pair), as four f32 [C] lanes
+    (p1r, p1i, p2r, p2i); a1, a2 are [C] (or 0-d) f32 tensors."""
+    disc = a1 * a1 - 4.0 * a2
+    sq = torch.sqrt(torch.abs(disc))
+    is_real = disc >= 0.0
+    p1r = torch.where(is_real, (-a1 + sq) * 0.5, -a1 * 0.5)
+    p1i = torch.where(is_real, 0.0, sq * 0.5)
+    p2r = torch.where(is_real, (-a1 - sq) * 0.5, -a1 * 0.5)
+    p2i = -p1i
+    return tuple(lanes(p, C, device) for p in (p1r, p1i, p2r, p2i))
+
+
 def biquad_apply(x: torch.Tensor, coefs: tuple, state: torch.Tensor,
                  mesh: Mesh | None = None):
     """Direct-form-1 biquad over a window x [T, C]; exact cross-window
@@ -434,16 +450,7 @@ def biquad_apply(x: torch.Tensor, coefs: tuple, state: torch.Tensor,
         x1, x2 = xcat[1:T + 1], xcat[0:T]
         new_x1, new_x2 = new_tail[1], new_tail[0]
     f = b0 * x + b1 * x1 + b2 * x2  # [T, C]
-
-    disc = a1 * a1 - 4.0 * a2
-    sq = torch.sqrt(torch.abs(disc))
-    is_real = disc >= 0.0
-    p1r = torch.where(is_real, (-a1 + sq) * 0.5, -a1 * 0.5)
-    p1i = torch.where(is_real, 0.0, sq * 0.5)
-    p2r = torch.where(is_real, (-a1 - sq) * 0.5, -a1 * 0.5)
-    p2i = -p1i
-    p1r, p1i, p2r, p2i = (lanes(p, C, x.device)
-                          for p in (p1r, p1i, p2r, p2i))
+    p1r, p1i, p2r, p2i = biquad_poles(a1, a2, C, x.device)
 
     y1, y2 = state[2], state[3]  # y[n-1], y[n-2], each [C]
     # u[-1] = y[-1] - p2*y[-2] (from y[n] = p2*y[n-1] + u[n])

@@ -15,14 +15,19 @@ timeline-parallel, as in the reference:
 * tape: tanh saturation and a one-pole low-pass (affine_scan);
 * delay: one feedback comb (the residue-class scan);
 * bitcrush: elementwise;
-* eq3: Linkwitz-Riley 4th-order tree crossovers from biquads
-  (ops/filters.biquad_apply, ops/scan.complex_affine_scan).
+* eq3: Linkwitz-Riley 4th-order tree crossovers from biquads. On one
+  device `eq3_crossover` runs the tree (four biquad stages and the band
+  sum) as one hand-written kernel, csrc/eq3.cu, on CUDA tensors (counter
+  `eq3_launches`), and on CPU tensors `eq3_plain`: the stages as
+  ops/filters.biquad_apply (ops/scan.complex_affine_scan) and torch ops.
+  Under a mesh, or where the exact biquad lane is pinned, `eq3_plain`
+  runs on every device.
 
 `params` hold the traced params as 0-d float32 tensors on the device, so
 expressions such as exp(-1/(release*0.001*sr)) run in float32 in the
 reference's order. Static params (delay-line lengths, eq crossovers) are
 host floats bound at graph build; biquad coefficients are host doubles
-cast to float32 once.
+cast to float32 once, and the eq3's poles are computed from them once.
 
 States are dicts of device tensors (delay tails, scan carries; tuples of
 them for the reverb's lines), so windows chain exactly.
@@ -48,9 +53,10 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import Mesh
+from ..utils.roofline import counted
 from .filters import (
-    biquad_apply, biquad_coefs, biquad_init_state, exclusive_total,
-    first_order_scan, lanes, prev_frames,
+    _exact_biquad, biquad_apply, biquad_coefs, biquad_init_state,
+    biquad_poles, exclusive_total, first_order_scan, lanes, prev_frames,
 )
 from .scan import (
     MAX_DECAY_IDENTITY, _affine, _max_decay, affine_scan, max_decay_scan,
@@ -58,6 +64,9 @@ from .scan import (
 )
 
 F32 = torch.float32
+
+# launches of csrc/eq3.cu by eq3_crossover (CPU calls do not count)
+eq3_launches = 0
 
 
 def _const(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -220,12 +229,13 @@ def static_values(eff: EffectDef, params: dict) -> dict:
 def bind_static(eff: EffectDef, sr: int, static: dict,
                 device: torch.device) -> dict:
     """An effect's static values with the device constants derived from
-    them (the eq3's biquad coefficients, key "coefs"), uploaded once for
-    every window a graph renders: a captured window program may not
-    upload."""
+    them (the eq3's biquad coefficients, key "coefs", and its kernel's
+    sections, key "sections"), made once for every window a graph
+    renders: a captured window program may not upload."""
     out = dict(static)
     if eff.kind == "eq3":
         out["coefs"] = _eq3_coefs(sr, *_eq3_freqs(sr, static), device)
+        out["sections"] = _eq3_sections(out["coefs"])
     return out
 
 
@@ -447,18 +457,23 @@ def _eq3_freqs(sr: int, static: dict) -> tuple[float, float]:
     return f_lo, f_hi
 
 
-def _eq3_process(x, state, params, sr, static, mesh=None):
-    """Crossover frequencies are static params bound at graph build (the
-    biquad coefficients are host-computed, uploaded by bind_static or
-    here); gains are traced."""
-    twenty = _const(20.0, x)
-    g_lo = torch.pow(10.0, params["low_gain"] / twenty)
-    g_mid = torch.pow(10.0, params["mid_gain"] / twenty)
-    g_hi = torch.pow(10.0, params["high_gain"] / twenty)
-    if "coefs" in static:
-        c_lo, c_hi = static["coefs"]
-    else:
-        c_lo, c_hi = _eq3_coefs(sr, *_eq3_freqs(sr, static), x.device)
+def _eq3_sections(coefs) -> torch.Tensor:
+    """The kernel's constants of both crossovers, [2, 7, 4] f32 on the
+    coefficients' device: each crossover's (b0, b1, b2, p1r, p1i, p2r,
+    p2i) per lane, the poles by the f32 torch arithmetic biquad_apply
+    uses (filters.biquad_poles)."""
+    return torch.stack([
+        torch.stack([b0, b1, b2, *biquad_poles(a1, a2, 4, b0.device)])
+        for b0, b1, b2, a1, a2 in coefs])
+
+
+def eq3_plain(x, state, gains, coefs, mesh=None):
+    """The crossover tree as four 4-channel biquad_apply stages and torch
+    ops: x [T, 2], state {"st0".."st3"} [4, 4] each, gains the (low, mid,
+    high) linear gains (0-d f32), coefs the low and high crossovers'
+    (b0, b1, b2, a1, a2) [4] each. Returns (y [T, 2], new state)."""
+    g_lo, g_mid, g_hi = gains
+    c_lo, c_hi = coefs
     xx = torch.cat([x, x], dim=1)  # [T, 4]
     t0, s0 = biquad_apply(xx, c_lo, state["st0"], mesh)
     t1, s1 = biquad_apply(t0, c_lo, state["st1"], mesh)
@@ -469,6 +484,87 @@ def _eq3_process(x, state, params, sr, static, mesh=None):
     mid, high = t3[:, 0:2], t3[:, 2:4]
     y = low * g_lo + mid * g_mid + high * g_hi
     return y, {"st0": s0, "st1": s1, "st2": s2, "st3": s3}
+
+
+def _eq3_gains(gains_db, x):
+    twenty = _const(20.0, x)
+    return tuple(torch.pow(10.0, g / twenty) for g in gains_db)
+
+
+def eq3_crossover_work(x, state, gains_db, coefs,
+                       sections) -> tuple[float, float]:
+    """(flops, bytes) of one eq3_crossover: four biquad stages over
+    [T, 4] lanes, each 4 flops a frame a lane (order 2) with its input
+    read and its output written once: the count of the benchmark's work
+    model (benchmark/harness/work_mix.py)."""
+    T = x.shape[0]
+    return 4 * 16.0 * T, 4 * 32.0 * T
+
+
+def _eq3_check(x, state, gains_db, sections) -> None:
+    dev = x.device
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] != 2:
+        raise ValueError(f"eq3_crossover: x must be [T, 2] with T >= 1, got "
+                         f"{tuple(x.shape)}")
+    named = [("x", x, x.shape), ("sections", sections, (2, 7, 4))]
+    named += [(k, state[k], (4, 4)) for k in ("st0", "st1", "st2", "st3")]
+    named += [(k, g, ()) for k, g in zip(("low_gain", "mid_gain",
+                                          "high_gain"), gains_db)]
+    for name, t, shape in named:
+        if not isinstance(t, torch.Tensor) or t.shape != shape:
+            raise ValueError(f"eq3_crossover: {name} must be a tensor of "
+                             f"shape {shape}")
+        if t.device != dev:
+            raise ValueError(f"eq3_crossover: {name} on {t.device}, x on "
+                             f"{dev}")
+        if t.dtype != F32:
+            raise TypeError(f"eq3_crossover: {name} is {t.dtype}, expected "
+                            "torch.float32")
+    if not sections.is_contiguous():
+        raise ValueError("eq3_crossover: sections is not contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"eq3_crossover: unsupported device {dev}")
+
+
+@counted(eq3_crossover_work)
+def eq3_crossover(x, state, gains_db, coefs, sections):
+    """The eq3 on one device: x [T, 2], state {"st0".."st3"} [4, 4] each,
+    gains_db the (low, mid, high) gains in dB (0-d f32), coefs and
+    sections from bind_static. Returns (y [T, 2], new state). CUDA
+    tensors run csrc/eq3.cu, the four stages and the band sum in at most
+    8 launches; CPU tensors eq3_plain. Anything else raises."""
+    global eq3_launches
+    _eq3_check(x, state, gains_db, sections)
+    if x.device.type == "cpu":
+        return eq3_plain(x, state, _eq3_gains(gains_db, x), coefs)
+    from ..kernels import eq3_launch
+
+    T = x.shape[0]
+    x = x.contiguous()
+    t01 = torch.empty((T, 4), dtype=F32, device=x.device)
+    t1 = torch.empty_like(t01)
+    y = torch.empty_like(x)
+    new = torch.empty((4, 4, 4), dtype=F32, device=x.device)
+    eq3_launch(x, sections,
+               tuple(state[f"st{i}"].contiguous() for i in range(4)),
+               gains_db, t01, t1, y, new)
+    eq3_launches += 1
+    return y, {f"st{i}": new[i] for i in range(4)}
+
+
+def _eq3_process(x, state, params, sr, static, mesh=None):
+    """Crossover frequencies are static params bound at graph build (the
+    coefficients and sections by bind_static, or here); gains are
+    traced. One device with the parallel lane: eq3_crossover; under a
+    mesh or on the exact lane: eq3_plain."""
+    if "sections" not in static:
+        static = bind_static(EFFECTS["eq3"], sr, static, x.device)
+    gains_db = (params["low_gain"], params["mid_gain"], params["high_gain"])
+    if mesh is None and not _exact_biquad():
+        return eq3_crossover(x, state, gains_db, static["coefs"],
+                             static["sections"])
+    return eq3_plain(x, state, _eq3_gains(gains_db, x), static["coefs"],
+                     mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -304,12 +304,15 @@ def counted(work):
     """Decorator of a kernel wrapper: under `count_work()` the wrapper's
     body runs uncounted (its launch, or its plain version on the CPU) and
     `work(*args, **kwargs)`, the kernel's (flops, bytes), is recorded in
-    its place. Its launch counter counts as before."""
+    its place. A wrapper called inside another's body (a plain version
+    built on kernel wrappers, as the eq3's) records nothing: the outer
+    formula stands for it, as on the card. Its launch counter counts as
+    before."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
             count = _ACTIVE
-            if count is None:
+            if count is None or count.paused:
                 return fn(*args, **kwargs)
             count.paused += 1
             try:

@@ -1,5 +1,5 @@
 """The port on a CUDA card: the voice-mix, affine-scan, max-decay,
-complex-scan, exact-biquad and SampSyn kernels against their plain
+complex-scan, exact-biquad, SampSyn and eq3 kernels against their plain
 versions (the SampSyn kernel also replayed from a CUDA graph), the
 effects, small renders (the exact lane's, a chain-served one and a 24-bit
 one with the native host library on and off among them), playback on
@@ -31,6 +31,7 @@ from termdaw_tpu_torch.utils.fixtures import (
     load_state, read_wav_ints, sampsyn_window, write_c1_project,
     write_c2_project, write_c3_project, write_c4_project, write_c5_project,
 )
+from benchmark.projects.mix_session import EQ_HIGH, EQ_LOW
 
 pytestmark = pytest.mark.cuda
 
@@ -566,6 +567,134 @@ def test_sampsyn_wrapper_refuses_mixes_on_card(cuda):
     assert synthv.sampsyn_launches == n0
 
 
+# the crossovers the fused eq3 is held at: every pair of the mix session
+# (projects/mix_session.EQ_LOW x EQ_HIGH), c4's and the clamp edges (the
+# lowest f_lo, the highest f_hi at 48 kHz); a few frames, c4's and c8's
+# window, a timeline of several tiles of kernels.scan_plan(T, 4, "eq3")
+# and a prime
+_EQ3_PAIRS = ([(lo, hi) for lo in EQ_LOW for hi in EQ_HIGH]
+              + [(180.0, 4000.0), (10.0, 0.35 * 48000)])
+_EQ3_T = [1, 2, 5, 1024, 16 * 1024, 100003, 384000]
+
+
+def _eq3_tol(f_lo):
+    """The bound of the kernel against the plain composition and against
+    float64, relative to max |y|. The pole cascade in f32 rounds its taps
+    and poles, and a slow pole pair amplifies that rounding: from 100 Hz
+    up both forms read up to ~3e-5 off float64 and off each other, at
+    f_lo = 10 Hz up to ~1.5e-3 (a CPU emulation of the kernel over 3
+    windows of 100,003 frames)."""
+    return 4e-3 if f_lo < 100.0 else 1e-4
+
+
+def _eq3_float64(x, coefs, gains):
+    """The eq3 over the whole stream x [N, 2] from rest as a float64
+    direct-form cascade of the f32 coefficients: (y [N, 2], each stage's
+    output [N, 4])."""
+    from scipy.signal import lfilter
+    lo, hi = (np.asarray([c.cpu().numpy() for c in cc], np.float64)
+              for cc in coefs)
+
+    def stage(u, c):
+        return np.stack([lfilter(c[:3, l], [1.0, *c[3:, l]], u[:, l])
+                         for l in range(4)], axis=1)
+
+    t0 = stage(np.concatenate([x, x], axis=1), lo)
+    t1 = stage(t0, lo)
+    t2 = stage(np.concatenate([t1[:, 2:4], t1[:, 2:4]], axis=1), hi)
+    t3 = stage(t2, hi)
+    y = t1[:, 0:2] * gains[0] + t3[:, 0:2] * gains[1] + t3[:, 2:4] * gains[2]
+    stage_in = (np.concatenate([x, x], axis=1), t0,
+                np.concatenate([t1[:, 2:4], t1[:, 2:4]], axis=1), t2)
+    return y, (t0, t1, t2, t3), stage_in
+
+
+@pytest.mark.parametrize("pair", _EQ3_PAIRS, ids=lambda p: f"{p[0]:g}-{p[1]:g}")
+@pytest.mark.parametrize("T", _EQ3_T)
+def test_eq3_kernel_matches_plain_and_float64_on_card(cuda, T, pair):
+    """fx.eq3_crossover on the card (csrc/eq3.cu) over 3 windows of T
+    frames with the state carried, gains of +-4 dB: against the plain
+    composition (fx.eq3_plain: biquad_apply and the complex scan) on the
+    card and a float64 direct-form cascade, the audio and each stage's
+    state (x[T-1], x[T-2], y[T-1], y[T-2]) within _eq3_tol; no further
+    from float64 than twice the plain form. One eq3_launches a call,
+    no complex scan launched; CPU tensors launch nothing."""
+    sr = 48000
+    eff = fx.EFFECTS["eq3"]
+    static = fx.bind_static(eff, sr, {"low_freq": pair[0],
+                                      "high_freq": pair[1]}, cuda)
+    rng = np.random.default_rng(T + int(pair[0]) * 7 + int(pair[1]))
+    db = tuple(torch.tensor(g, dtype=torch.float32, device=cuda)
+               for g in (4.0, -4.0, 2.5))
+    gains = [float(g) for g in fx._eq3_gains(db, db[0])]
+    x = (0.5 * rng.normal(size=(3 * T, 2))).astype(np.float32)
+    st_k = eff.init_state(sr, static, cuda)
+    st_p = eff.init_state(sr, static, cuda)
+    yk, yp = [], []
+    for w in range(3):
+        xw = torch.from_numpy(x[w * T:(w + 1) * T]).to(cuda)
+        n0, c0 = fx.eq3_launches, scan.complex_launches
+        y, st_k = fx.eq3_crossover(xw, st_k, db, static["coefs"],
+                                   static["sections"])
+        torch.cuda.synchronize()
+        assert fx.eq3_launches == n0 + 1 and scan.complex_launches == c0
+        yk.append(y.cpu().numpy())
+        y, st_p = fx.eq3_plain(xw, st_p, fx._eq3_gains(db, xw),
+                               static["coefs"])
+        yp.append(y.cpu().numpy())
+    yk, yp = np.concatenate(yk), np.concatenate(yp)
+    y64, outs, ins = _eq3_float64(x.astype(np.float64), static["coefs"],
+                                  gains)
+    tol = _eq3_tol(pair[0])
+    scale = max(1.0, float(np.abs(y64).max()))
+    np.testing.assert_allclose(yk, yp, rtol=0, atol=tol * scale,
+                               err_msg="kernel vs plain")
+    np.testing.assert_allclose(yk, y64, rtol=0, atol=tol * scale,
+                               err_msg="kernel vs float64")
+    assert (np.abs(yk - y64).max()
+            <= 2 * np.abs(yp - y64).max() + 1e-5 * scale)
+    n = 3 * T
+    for i in range(4):
+        got = st_k[f"st{i}"].cpu().numpy()
+        np.testing.assert_allclose(got, st_p[f"st{i}"].cpu().numpy(),
+                                   rtol=0, atol=tol * scale,
+                                   err_msg=f"st{i}: kernel vs plain")
+        want = np.stack([ins[i][n - 1], ins[i][n - 2] if n > 1 else 0.0,
+                         outs[i][n - 1], outs[i][n - 2] if n > 1 else 0.0])
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol * scale,
+                                   err_msg=f"st{i}: kernel vs float64")
+    if T == 1:  # the CPU launches nothing
+        n0 = fx.eq3_launches
+        fx.eq3_crossover(torch.from_numpy(x[:5]), eff.init_state(
+            sr, static, "cpu"), tuple(g.cpu() for g in db),
+            tuple(tuple(c.cpu() for c in cc) for cc in static["coefs"]),
+            static["sections"].cpu())
+        assert fx.eq3_launches == n0
+
+
+def test_eq3_wrapper_refuses_mixes_on_card(cuda):
+    """A state, a gain or the sections on the CPU beside a CUDA window
+    raises before any launch."""
+    sr = 48000
+    eff = fx.EFFECTS["eq3"]
+    static = fx.bind_static(eff, sr, fx.static_values(eff, eff.defaults),
+                            cuda)
+    x = torch.zeros((64, 2), device=cuda)
+    st = eff.init_state(sr, static, cuda)
+    db = tuple(torch.zeros((), device=cuda) for _ in range(3))
+    n0 = fx.eq3_launches
+    with pytest.raises(ValueError, match="on cpu"):
+        fx.eq3_crossover(x, dict(st, st2=st["st2"].cpu()), db,
+                         static["coefs"], static["sections"])
+    with pytest.raises(ValueError, match="on cpu"):
+        fx.eq3_crossover(x, st, (db[0], db[1].cpu(), db[2]),
+                         static["coefs"], static["sections"])
+    with pytest.raises(ValueError, match="on cpu"):
+        fx.eq3_crossover(x, st, db, static["coefs"],
+                         static["sections"].cpu())
+    assert fx.eq3_launches == n0
+
+
 @pytest.mark.parametrize("kind", sorted(fx.EFFECTS))
 def test_effect_on_card_matches_cpu(cuda, kind):
     """Each effect over two windows at 48 kHz on the card against the CPU
@@ -632,10 +761,11 @@ def test_capture_records_nodes_and_arms_on_card(cuda, tmp_path):
 def test_small_c4_render_on_card_matches_cpu(cuda, tmp_path):
     write_c4_project(tmp_path, 2.0, 8000, 256, render_sr=8000)
     scan.launches = scan.max_decay_launches = scan.complex_launches = 0
-    voices.launches = synthv.sampsyn_launches = 0
+    voices.launches = synthv.sampsyn_launches = fx.eq3_launches = 0
     load_state(tmp_path, cuda).render()
     assert min(voices.launches, scan.launches, scan.max_decay_launches,
-               scan.complex_launches, synthv.sampsyn_launches) > 0
+               fx.eq3_launches, synthv.sampsyn_launches) > 0
+    assert scan.complex_launches == 0  # the eq3 was its only user here
     got, _ = read_wav_ints(tmp_path / "outp.wav")
     load_state(tmp_path, torch.device("cpu")).render()
     want, _ = read_wav_ints(tmp_path / "outp.wav")
@@ -755,16 +885,18 @@ def test_small_c4_exact_lane_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     """TERMDAW_EXACT_BIQUAD=1: the eq3 runs the kernel (4 launches a
     window: the one window replays a captured program holding 4, and the
     wrapper counts the capture's warm-up and the capture), never the
-    complex scan, within one count of the CPU."""
+    complex scan and never the fused eq3 kernel, within one count of the
+    CPU."""
     monkeypatch.setenv("TERMDAW_EXACT_BIQUAD", "1")
     write_c4_project(tmp_path, 2.0, 8000, 256, render_sr=8000)
     st = load_state(tmp_path, cuda)
     n0, c0 = filters.biquad_seq_launches, scan.complex_launches
+    e0 = fx.eq3_launches
     st.render()
     (prog,) = st.compiled.programs()
     assert prog.kernels["biquad_seq"] == 4 and prog.replays == 1
     assert filters.biquad_seq_launches - n0 == 2 * 4
-    assert scan.complex_launches == c0
+    assert scan.complex_launches == c0 and fx.eq3_launches == e0
     got, _ = read_wav_ints(tmp_path / "outp.wav")
     load_state(tmp_path, torch.device("cpu")).render()
     want, _ = read_wav_ints(tmp_path / "outp.wav")

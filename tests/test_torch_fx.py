@@ -304,7 +304,8 @@ def test_complex_affine_scan_plain_matches_reference_and_float64(T, C):
     (1, 1, "affine"), (1, 1, "complex"), (5, 3, "complex"),
     (4097, 33, "complex"), (1, 1, "max_decay"), (1025, 4, "max_decay"),
     (67, 1785, "max_decay"), (4097, 33, "max_decay"), (1025, 64, "max_decay"),
-    (2 * 1792 + 1, 1, "max_decay")])
+    (2 * 1792 + 1, 1, "max_decay"), (384000, 4, "eq3"), (1, 4, "eq3"),
+    (1472, 4, "eq3"), (1473, 4, "eq3"), (100003, 4, "eq3")])
 def test_scan_plan_tiles_cover_the_scan_within_shared_memory(T, C, op):
     """kernels.scan_plan, which the tiled kernels take their tiling from:
     the tiles cover [T, C]; a CTA fits 48 KB of shared memory with the
@@ -315,14 +316,15 @@ def test_scan_plan_tiles_cover_the_scan_within_shared_memory(T, C, op):
     p = kernels.scan_plan(T, C, op)
     planes, total_bytes = kernels.SCAN_OPS[op]
     assert (planes, total_bytes) == {"affine": (1, 16), "max_decay": (1, 16),
-                                     "complex": (2, 32)}[op]
+                                     "complex": (2, 32), "eq3": (1, 80)}[op]
+    agg = {"eq3": 4}.get(op, planes)  # planes of each tile's total
     assert p.cl >= min(C, 32) and p.cl & (p.cl - 1) == 0 and p.cl <= 32
     assert p.s == (kernels.SCAN_THREADS // p.cl) * p.k
     assert p.tiles == -(-T // p.s) and p.lane_tiles * p.cl >= C
     assert p.smem == kernels.SCAN_THREADS * p.k * 4 * planes
     assert p.smem + 8 * p.cl * total_bytes <= kernels.SCAN_SHARED_BYTES
     assert p.cl == 32 or p.k % 2 == 1
-    assert p.scratch == (planes * p.tiles * C if p.tiles > 1 else 0)
+    assert p.scratch == (agg * p.tiles * C if p.tiles > 1 else 0)
     if T == 384000 and C == 4:
         assert p.tiles * p.lane_tiles >= 132
     if (T, C, op) == (384000, 1, "max_decay"):
@@ -331,6 +333,8 @@ def test_scan_plan_tiles_cover_the_scan_within_shared_memory(T, C, op):
         assert (p.k, p.tiles) == (17, 1)  # the shortest run of one tile
     if (T, C) == (67, 11520):
         assert p.tiles == 1
+    if op == "eq3" and T >= 1472:  # an eq3 stage: runs of 23, 1472 frames
+        assert (p.cl, p.k, p.s) == (4, 23, 1472)
 
 
 def test_kernel_build_key_hashes_the_shared_headers(tmp_path, monkeypatch):

@@ -19,7 +19,7 @@ Every case runs on the CPU (the kernels' plain versions) and, marked
 `cuda`, on a card, where it also asserts which hand-written kernels the
 effect launched through the wrappers' counters: the reverb, delay and
 tape csrc/affine_scan.cu, the compressor csrc/max_decay_scan.cu and
-affine_scan.cu, the eq3 csrc/complex_scan.cu, the exact eq3
+affine_scan.cu, the eq3 csrc/eq3.cu, the exact eq3
 csrc/biquad_seq.cu, the others none. This file imports nothing of JAX:
 
     python -m pytest tests/test_torch_fx_oracle.py -m cuda -q
@@ -257,12 +257,12 @@ CASES = [
 ]
 
 # the kernels each effect launches on the card (graph.compile's counter
-# names); the exact eq3 launches biquad_seq and never the complex scan
+# names); the eq3 its own kernel, the exact eq3 biquad_seq
 KERNELS = {
     "reverb": {"affine_scan"}, "delay": {"affine_scan"},
     "compressor": {"max_decay_scan", "affine_scan"},
     "tape": {"affine_scan"}, "chorus": set(), "flanger": set(),
-    "bitcrush": set(), "eq3": {"complex_scan"},
+    "bitcrush": set(), "eq3": {"eq3"},
 }
 
 SPLIT_IDS = ["whole", "4x1024", "ragged"]

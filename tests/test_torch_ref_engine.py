@@ -333,7 +333,7 @@ class TestSampSynAndFx:
             )
             st.refresh()
             assert st.loaded
-            with launched(device, "complex_scan"):
+            with launched(device, "eq3"):
                 st.render()
             audio, _ = read_wav(out, scale=True)
             half = len(audio) // 2
@@ -469,7 +469,7 @@ class TestExactBiquadScoping:
     lane and the pole cascade differ by ~3e-5, so a leaked setting shows
     as a bit-level mismatch against the isolated render. On the card both
     threads capture their first window at once: the exact graph's
-    program holds csrc/biquad_seq.cu, the cascade's csrc/complex_scan.cu."""
+    program holds csrc/biquad_seq.cu, the cascade's csrc/eq3.cu."""
 
     LUA = """
         set_length(0.25);
@@ -517,7 +517,7 @@ class TestExactBiquadScoping:
         # reference outputs: FIRST render of a fresh graph per setting
         # (fx state carries across renders, so only first renders of
         # identically built graphs are comparable bit-for-bit)
-        with launched(device, "biquad_seq", "complex_scan"):
+        with launched(device, "biquad_seq", "eq3"):
             st_a = self._build(tmp_path / "a", True, monkeypatch, device)
             st_b = self._build(tmp_path / "b", False, monkeypatch, device)
             ref_exact = self._render(st_a)
@@ -527,7 +527,7 @@ class TestExactBiquadScoping:
         on_card = device.type == "cuda"
         if on_card:
             assert self._kernels(st_a) == {"biquad_seq"}
-            assert self._kernels(st_b) == {"complex_scan"}
+            assert self._kernels(st_b) == {"eq3"}
 
         for rnd in range(2):
             st_exact = self._build(
@@ -565,7 +565,7 @@ class TestExactBiquadScoping:
             np.testing.assert_array_equal(results["casc"], ref_casc)
             if on_card:
                 assert self._kernels(st_exact) == {"biquad_seq"}
-                assert self._kernels(st_casc) == {"complex_scan"}
+                assert self._kernels(st_casc) == {"eq3"}
 
 
 class TestLuaCoroutineProjectScripts:

@@ -21,7 +21,7 @@ from termdaw_tpu.engine.state import State as RefState
 from termdaw_tpu.utils import roofline as ref_roofline
 
 from termdaw_tpu_torch.graph import compile as gc
-from termdaw_tpu_torch.ops import filters, scan, synthv, voices
+from termdaw_tpu_torch.ops import filters, fx, scan, synthv, voices
 from termdaw_tpu_torch.ops.adsr import hit_conf
 from termdaw_tpu_torch.utils import roofline
 from termdaw_tpu_torch.utils.fixtures import (
@@ -208,6 +208,15 @@ def _wrapper_call(name: str, rng):
         # [nb, N] clocks, 4 bytes each
         ins = nb * bl * 8 + (bl + K + K * W + nb * P + 6 * N + 2 * nb * N) * 4
         return synthv.sampsyn, args, (28 * nb * bl * P, ins + nb * bl * 2 * 4)
+    if name == "eq3_crossover":
+        eff = fx.EFFECTS["eq3"]
+        static = fx.bind_static(eff, 48000, {"low_freq": 150.0,
+                                             "high_freq": 3000.0}, CPU)
+        state = {k: f32(4, 4) for k in ("st0", "st1", "st2", "st3")}
+        db = tuple(f32(lo=-4.0, hi=4.0) for _ in range(3))
+        args = (f32(T, 2), state, db, static["coefs"], static["sections"])
+        # four biquad stages over [T, 4] lanes (the benchmark's work model)
+        return fx.eq3_crossover, args, (4 * 16 * T, 4 * 32 * T)
     coefs = tuple(f32(C, lo=-0.5, hi=0.5) for _ in range(5))
     args = (f32(T, C), coefs, f32(4, C))
     return (filters.biquad_apply_sequential, args,
@@ -216,7 +225,8 @@ def _wrapper_call(name: str, rng):
 
 @pytest.mark.parametrize("name", [
     "affine_scan", "max_decay_scan", "complex_affine_scan",
-    "voice_mix_stereo", "biquad_apply_sequential", "sampsyn"])
+    "voice_mix_stereo", "biquad_apply_sequential", "sampsyn",
+    "eq3_crossover"])
 def test_kernel_wrapper_records_its_formula(name):
     fn, args, (flops, nbytes) = _wrapper_call(name, np.random.default_rng(1))
     want = fn(*args)
