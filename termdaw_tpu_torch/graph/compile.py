@@ -468,6 +468,20 @@ def _nbytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _note_fill(bakes: dict[str, dict[str, np.ndarray]]) -> tuple[int, int]:
+    """(slots, voices) of a window's polyphonic instance tables (the
+    [nb, P] `idx` of SampleMulti, DebugSine, Synth and SampSyn bakes): nb
+    x P each, and the entries that hold an instance (idx >= 0). A fused
+    SampleMulti group's voice table is not an instance table."""
+    slots = voices = 0
+    for tbl in bakes.values():
+        idx = tbl.get("idx")
+        if idx is not None:
+            slots += int(idx.size)
+            voices += int(np.count_nonzero(idx >= 0))
+    return slots, voices
+
+
 # which vertex kinds carry host-side bake state, and their carry class
 _CARRY_CLASSES: dict[str, type] = {
     G.SAMPLEMULTI: B.MultiCarry,
@@ -856,7 +870,9 @@ class CompiledGraph:
         # (a capture on CUDA) and windows run through a cached program (a
         # replay on CUDA), with the device nodes those replays launched
         # (each program's `nodes`, counted at its capture); the bytes the
-        # captures added to the graph's pool
+        # captures added to the graph's pool; the slots of the windows'
+        # polyphonic instance tables and the voices that filled them
+        # (`_note_fill`, counted at the bake, kept with a chain's window)
         self.served_windows = 0
         self.live_bakes = 0
         self.sharded_windows = 0
@@ -864,6 +880,8 @@ class CompiledGraph:
         self.replays = 0
         self.replayed_nodes = 0
         self.pool_bytes = 0
+        self.note_slots = 0
+        self.note_voices = 0
         # per-fused-group pooled event arrays, keyed by FlowwBank version
         self._pool_cache: dict[int, tuple] = {}
         # per-(consumer, member) processed event arrays, keyed by the
@@ -987,7 +1005,7 @@ class CompiledGraph:
             # guarantees the live carries equal that state at serve time
             delta = {vi: c for vi, c in nc.items() if c != carries.get(vi)}
             wins.append((ints, floats, layout, delta,
-                         *self._classify_delta(delta)))
+                         *self._classify_delta(delta), _note_fill(bakes)))
             carries = dict(carries)
             carries.update(nc)
             fb.advance_blocks(nb)
@@ -1073,13 +1091,13 @@ class CompiledGraph:
                       self._carries_equal(start, ch["start_unfresh"]))
                 if not ok:
                     continue
-            ints, floats, layout, delta, fresh_d, unfresh_d, copy_vis = \
-                ch["wins"][i]
+            ints, floats, layout, delta, fresh_d, unfresh_d, copy_vis, \
+                fill = ch["wins"][i]
             ch["expect"] = i + 1
             if copy_vis:
                 delta = {vi: (_copy_carry(c) if vi in copy_vis else c)
                          for vi, c in delta.items()}
-            return ints, floats, layout, delta, fresh_d, unfresh_d
+            return ints, floats, layout, delta, fresh_d, unfresh_d, fill
         return None
 
     _REC_MAX = 4       # recorded chains kept (LRU)
@@ -1087,11 +1105,11 @@ class CompiledGraph:
 
     def _record_window(self, fb: FlowwBank, t0: int, nb: int,
                        ints: np.ndarray, floats: np.ndarray, layout,
-                       new_carries) -> None:
+                       new_carries, fill: tuple[int, int]) -> None:
         """Record one live-baked window (its packed host buffers, uploaded
-        here if kept) into the active recording chain, started with a
-        snapshot of the carries before the window. Called before
-        self.carries is updated."""
+        here if kept, and its `_note_fill`) into the active recording
+        chain, started with a snapshot of the carries before the window.
+        Called before self.carries is updated."""
         if not self._prebake_on or nb < self._REC_MIN_NB:
             return
         used = ints.nbytes + floats.nbytes  # int32 / float32 on the device
@@ -1119,7 +1137,7 @@ class CompiledGraph:
                  if c != self.carries.get(vi)}
         rec["index"][(t0, fb.frame, nb)] = len(rec["wins"])
         rec["wins"].append((*self._upload_packed(ints, floats), layout,
-                            delta, *self._classify_delta(delta)))
+                            delta, *self._classify_delta(delta), fill))
         rec["next"] = (t0 + nb * self.bl, fb.frame + nb * self.bl)
         rec["bytes"] += used
         self._prebake_used += used
@@ -1343,18 +1361,22 @@ class CompiledGraph:
             sp.attr("nb", nb)
             sp.attr("served", served is not None)
             if served is not None:
-                ints, floats, layout, new_carries, fresh_d, unfresh_d = served
+                ints, floats, layout, new_carries, fresh_d, unfresh_d, \
+                    fill = served
                 self.served_windows += 1
             else:
                 with span("window.bake"):
                     self._reset_chain_expects()
                     bakes, new_carries = self._bake_all(fb, t0, nb)
                     ints, floats, layout = _pack_bakes(bakes)
+                    fill = _note_fill(bakes)
                     self.live_bakes += 1
                     self._record_window(fb, t0, nb, ints, floats, layout,
-                                        new_carries)
+                                        new_carries, fill)
                     ints = torch.from_numpy(ints)
                     floats = torch.from_numpy(floats)
+            self.note_slots += fill[0]
+            self.note_voices += fill[1]
             self._pack_fx()
             ttab_len = int(self._time_table(t0 + nb * self.bl).shape[0]) \
                 if self._uses_time else 0
@@ -1460,6 +1482,9 @@ class CompiledGraph:
                        for f, a in tbl.items()}
                 for vkey, tbl in bakes.items()}
         ints, floats, layout = _pack_bakes(mine)
+        slots, voices_ = _note_fill(mine)
+        self.note_slots += slots
+        self.note_voices += voices_
         ints, floats = torch.from_numpy(ints), torch.from_numpy(floats)
         self._pack_fx()
         ttab_len = int(self._time_table(t0 + nb_total * self.bl).shape[0]) \

@@ -567,6 +567,61 @@ def test_sampsyn_wrapper_refuses_mixes_on_card(cuda):
     assert synthv.sampsyn_launches == n0
 
 
+# the instrument session's note arms (benchmark/configs/c9_poly32.json):
+# a 375-block window of 32 slots, the cell's ADSR and oscillators, a
+# K = 4 table
+_POLY_CONF = hit_conf(0.01, 0.2, 0.8, 3.0, 0.4, 0.8)
+
+
+def _poly_window(cuda):
+    from termdaw_tpu_torch.graph.compile import time_table
+
+    nb, bl, sr = 375, 1024, 48000
+    bake, frames, ib, times, waves = sampsyn_window(
+        cuda, nb, bl, 32, 128, K=4, seed=11, empty=0.5)
+    bake = dict(bake, hz=bake["cyc"] * float(sr))
+    ttab = torch.from_numpy(time_table(sr, int(frames[-1]) + 1)).to(cuda)
+    time2d = ttab[frames].reshape(nb, bl)
+    return bake, frames, ib, times, waves, time2d
+
+
+def _on_cpu(*args):
+    return [({k: v.cpu() for k, v in a.items()} if isinstance(a, dict)
+             else a.cpu()) for a in args]
+
+
+def test_poly_synth_arm_at_the_cell_window_on_card(cuda):
+    """The Synth arm, all three oscillators on, at c9's window [375, 1024,
+    32] on the card against the same arm on the CPU: within 1e-5 (the
+    card's and the CPU's f32 sine differ by an ulp, and each sums the 32
+    slots in its own order: up to 32 roundings of partial sums below 4,
+    at 2.4e-7 each)."""
+    bake, frames, ib, _t, _w, time2d = _poly_window(cuda)
+    args = (0.5, 0.6, _POLY_CONF, 0.7, 0.8, _POLY_CONF, 0.6, _POLY_CONF)
+    got = synthv.synth(bake, frames, 375, 1024, *args, time2d, ib)
+    cb, cf, cib, ct = _on_cpu(bake, frames, ib, time2d)
+    want = synthv.synth(cb, cf, 375, 1024, *args, ct, cib)
+    assert float(want.abs().max()) > 0.5
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+def test_poly_sampsyn_kernel_at_the_cell_window_on_card(cuda):
+    """csrc/sampsyn.cu at c9's window (32 slots, a K = 4 table) against
+    sampsyn_plain on the CPU: within 1e-5 (the kernel adds the 32 slots
+    in their order, torch.sum on the CPU in its own; see above), one
+    launch."""
+    bake, frames, ib, times, waves, _ = _poly_window(cuda)
+    n0 = synthv.sampsyn_launches
+    got = synthv.sampsyn(bake, frames, 375, 1024, _POLY_CONF, times, waves,
+                         ib)
+    torch.cuda.synchronize()
+    assert synthv.sampsyn_launches == n0 + 1
+    want = synthv.sampsyn_plain(*_on_cpu(bake, frames), 375, 1024,
+                                _POLY_CONF, *_on_cpu(times, waves, ib))
+    assert float(want.abs().max()) > 0.5
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
 # the crossovers the fused eq3 is held at: every pair of the mix session
 # (projects/mix_session.EQ_LOW x EQ_HIGH), c4's and the clamp edges (the
 # lowest f_lo, the highest f_hi at 48 kHz); a few frames, c4's and c8's
