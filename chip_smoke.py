@@ -15,8 +15,8 @@ phase 12 gates those of a replayed c4 render against its device rows.
 
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
 2. build: compiles every kernel (csrc/voice_mix.cu, affine_scan.cu,
-   max_decay_scan.cu, complex_scan.cu, biquad_seq.cu, sampsyn.cu, eq3.cu)
-   with nvcc for
+   max_decay_scan.cu, complex_scan.cu, biquad_seq.cu, sampsyn.cu, eq3.cu,
+   synth.cu) with nvcc for
    sm_90a, one nvcc process each, all in parallel, and prints each
    compiled kernel's registers, shared memory and spills (ptxas); the
    exact lane's SASS (cuobjdump) must hold no FFMA;
@@ -48,7 +48,7 @@ phase 12 gates those of a replayed c4 render against its device rows.
 7. c2 end to end (SampleLerp kick, an Adsr envelope ducking a looping
    pad, 48 kHz / 1024, 40 s, 16-bit) and c3 end to end (Synth and SampSyn
    through a BandPass, same format), with the same comparison; the c3 run
-   must launch the affine-scan kernel;
+   must launch the affine-scan, SampSyn and Synth kernels;
 8. playback: the port's Player on cuda with c2 and a capturing sink;
    play() queues the 16-block prebuffer, equal to the CPU render of the
    same blocks (atol 1e-5); a few tick()s queue more finite audio;
@@ -64,9 +64,10 @@ phase 12 gates those of a replayed c4 render against its device rows.
    conjugate pair at 20 Hz), checked as phase 4's slow pole;
 10. c4 end to end (the reference's demo project with the reverb ->
    compressor -> eq3 -> delay chain, 48 kHz / 1024, 40 s -> 44.1 kHz
-   16-bit): refresh + render on cuda, which must launch all five kernels
-   of its path (the voice mix, affine and max-decay scans, SampSyn and the
-   eq3; the complex scan only runs sharded), and the WAV against the port's CPU render, as in phase 5; then the
+   16-bit): refresh + render on cuda, which must launch all six kernels
+   of its path (the voice mix, affine and max-decay scans, SampSyn, the
+   Synth and the eq3; the complex scan only runs sharded), and the WAV
+   against the port's CPU render, as in phase 5; then the
    project's own SampSyn windows, run eager (375 blocks each, the whole
    40 s): each window's sampsyn call on the card (the kernel) against
    sampsyn_plain on the same bake, frames and in-block clock, within
@@ -166,7 +167,7 @@ phase 12 gates those of a replayed c4 render against its device rows.
 20. the native host library (termdaw_tpu_torch/native/, compiled with
    g++ in phase 2 into termdaw_tpu_torch/build/): the compiler's version,
    the build's seconds (or "cached") and the .so; c4 at 24 bits on the
-   card from graphs (all five default-path kernels launched), its WAV
+   card from graphs (all six default-path kernels launched), its WAV
    written through the native pack24 (counted in `native.calls`) and
    through the numpy body in turns, 3 renders each, byte-identical, and
    within phase 5's bound of the port's CPU render; the program's
@@ -187,8 +188,8 @@ phase 12 gates those of a replayed c4 render against its device rows.
    eager, in lockstep, then 5 more passes each way in turns. Gated: the
    audio and the numeric state bit-identical eager against replayed,
    every window a replay, every program captured with all its collectives
-   (as many as the eager program issues a window) and, on c4, all five
-   default-path kernels (c5: the voice mix), each launched in the first
+   (as many as the eager program issues a window) and, on c4, the six
+   kernels of its sharded path (c5: the voice mix), each launched in the first
    pass (wrapper counts set to 0 just before it). Printed: the window
    walls (medians eager and
    replayed), the host's enqueue rows a window each way, each program's
@@ -203,8 +204,8 @@ phase 12 gates those of a replayed c4 render against its device rows.
    utils/example_assets.py), the WAV within phase 5's bound of the port's
    CPU render at full length (40 s, generative 16 s); each also rendered
    in this process on the card, within that bound too, every window a
-   replay, and the five together launching the voice mix, affine and
-   max-decay kernels (`path_launches`). Printed: each example's CLI wall,
+   replay, and the five together launching the voice mix, affine,
+   max-decay, SampSyn and Synth kernels (`path_launches`). Printed: each example's CLI wall,
    render_device median of 5 and launches, and the assets' generation
    seconds. Then `python -m termdaw_tpu_torch.tools.stream_gen --duration
    12 --streams kick,snare,hihat,ride,bass,chords` (paced) piped into
@@ -277,6 +278,20 @@ phase 12 gates those of a replayed c4 render against its device rows.
    capture, adds 65 to `eq3_launches` and nothing to `complex_launches`
    (every program captured 65 eq3 launches, one an eq3 arm), and so does
    an eager window.
+28. the Synth kernel (csrc/synth.cu, synthv.synth): at c9's window (375
+   blocks of 1024 frames, 32 slots half of them empty, all three
+   oscillators on the session's ADSR; utils/fixtures.synth_window) and at
+   c4's bass (2 slots, square and top-flat on two ADSRs, the triangle
+   off) against synthv.synth_plain on the card, within 1e-5 and 2e-6
+   (each slot's value is the plain version's; only the order of the sum
+   over slots differs); its device ms (20 calls captured in a CUDA graph,
+   replayed between CUDA events) beside its bound (the wrapper's work, f32
+   operations at 67 TFLOP/s or bytes at 3.35 TB/s) and the plain
+   version's ms. Then c9 (benchmark/projects/poly_session.py, 16 Synths
+   and 16 SampSyns) on the card: each pass of its window program, the
+   eager warm-up and the capture, adds 16 to `synth_launches` (every
+   program captured 16 synth launches, one a Synth arm), and so does an
+   eager window; the median of 5 render_device walls.
 
 Then the card line, the kernels line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -336,11 +351,12 @@ PIPE_SECONDS, PIPE_STREAMS = 12, "kick,snare,hihat,ride,bass,chords"
 # phase 25: the kernels each card entry of the parity report (run with
 # --full, all seven entries) must launch, and how many times the CPU's
 # max |err| the card's may be (the readings differ by 2 dB at most)
-PARITY_KERNELS = {"config3_synths_bandpass": ("affine_scan", "sampsyn"),
+PARITY_KERNELS = {"config3_synths_bandpass": ("affine_scan", "sampsyn",
+                                              "synth"),
                   "config4_fx_chain_invariance": ("affine_scan",
                                                   "max_decay_scan"),
                   "config5_multitrack_fused": ("voice_mix",),
-                  "config3_full_48k": ("affine_scan", "sampsyn")}
+                  "config3_full_48k": ("affine_scan", "sampsyn", "synth")}
 PARITY_CARD_VS_CPU = 10.0
 PARITY_TIMEOUT_S = 300
 # phase 26: the concurrent renders' rounds, the feed/render cycles, and the
@@ -731,9 +747,10 @@ def profile_render(st) -> dict:
                         ("affine_scan", "AffineScanOp"),
                         ("max_decay_scan", "MaxDecayScanOp"),
                         ("eq3", "Eq3Stage"),
-                        ("sampsyn", "sampsyn_kernel")):
+                        ("sampsyn", "sampsyn_kernel"),
+                        ("synth", "synth_kernel")):
             ks = [e for e in dev if name in e.name]
-            calls = [e for e in ks if k in ("voice_mix", "sampsyn")
+            calls = [e for e in ks if k in ("voice_mix", "sampsyn", "synth")
                      or "tile_scan" in e.name]
             mine[k] = {"ms": ms(ks), "device_kernels": len(ks),
                        "device_calls": len(calls) // (4 if k == "eq3"
@@ -1295,7 +1312,7 @@ def native_render(fixtures, tmp: Path, cuda, reset_counts) -> dict:
     replays = check_replays(st, "c4 at 24 bits")
     launches = path_launches(st.compiled)
     for k in ("voice_mix", "affine_scan", "max_decay_scan", "eq3",
-              "sampsyn"):
+              "sampsyn", "synth"):
         check(launches.get(k, 0) > 0,
               f"the 24-bit c4 render launched no {k} kernel")
     device_s = wall_render(st, 5)
@@ -1379,7 +1396,8 @@ def example_renders(fixtures, tmp: Path, cuda, cpu) -> dict:
                                     n),
                      "in_process": compare(name, card, host, 16, card_rate,
                                            SR, n)}
-    for k in ("voice_mix", "affine_scan", "max_decay_scan", "sampsyn"):
+    for k in ("voice_mix", "affine_scan", "max_decay_scan", "sampsyn",
+              "synth"):
         check(union.get(k, 0) > 0, f"no example launched the {k} kernel")
     t0 = time.perf_counter()
     example_assets.ensure(tmp / "assets_timed")
@@ -2027,6 +2045,94 @@ def eq3_phase(fixtures, tmp: Path, cuda, reset_counts) -> dict:
     return out
 
 
+# phase 28: the Synth kernel at c9's window (32 slots, half of them empty)
+# and at c4's bass (2 slots), each with how far it may read from its
+# plain version on the card (only the order of the sum over slots
+# differs: 1e-5 at 32 slots, 2e-6 at 2), and c9's Synth arms a pass
+SYNTH_SHAPES = {"c9": (dict(nb=375, bl=BL, P=32, N=128, empty=0.5), 1e-5),
+                "c4_bass": (dict(nb=375, bl=BL, P=2, N=64), 2e-6)}
+C9_SYNTHS = 16
+
+
+def synth_phase(fixtures, tmp: Path, cuda, reset_counts) -> dict:
+    """Phase 28: synthv.synth at each of SYNTH_SHAPES against
+    synthv.synth_plain on the card, timed beside its bound and the plain
+    version; then c9's window program: the wrapper's launches each pass,
+    and its render_device walls."""
+    from benchmark.projects import poly_session
+    from termdaw_tpu_torch.engine.state import render_chunk_blocks
+    from termdaw_tpu_torch.ops import synthv
+    from termdaw_tpu_torch.ops.adsr import AdsrConf, hit_conf
+
+    cfg = json.loads((ROOT / "benchmark" / "configs" / "c9_poly32.json")
+                     .read_text())
+    adsr, syn = hit_conf(*cfg["adsr"]), cfg["synth"]
+    oscs = {"c9": (*syn["sq"], adsr, *syn["tf"], adsr, syn["tr"], adsr),
+            "c4_bass": (0.4, 0.3, hit_conf(0.001, 0.02, 0.0, 0.0, 0.0, 0.0),
+                        1.0, 0.8, hit_conf(0.01, 0.1, 0.8, 5.0, 0.2, 0.5),
+                        0.0, AdsrConf())}
+    out: dict = {"kernel": {}}
+    for name, (w, atol) in SYNTH_SHAPES.items():
+        bake, frames, time2d, ib = fixtures.synth_window(cuda, seed=28, **w)
+        call = (bake, frames, w["nb"], w["bl"], *oscs[name], time2d, ib)
+        n0 = synthv.synth_launches
+        got = synthv.synth(*call)
+        torch.cuda.synchronize()
+        check(synthv.synth_launches == n0 + 1, "synth: no launch counted")
+        want = synthv.synth_plain(*call)
+        err = float((got - want).abs().max())
+        y = float(want.abs().max())
+        check(bool(torch.isfinite(got).all()) and y > 0.05,
+              f"synth at {name}'s window: not finite or silent ({y})")
+        check(err <= atol, f"synth kernel vs plain at {name}'s window max "
+                           f"|diff| {err} > {atol}")
+        ms = graph_ms(lambda: synthv.synth(*call))
+        b = bound(synthv.synth_work(*call))
+        out["kernel"][name] = dict(
+            nb=w["nb"], bl=w["bl"], P=w["P"],
+            live_slots=float((bake["idx"] >= 0).float().mean()),
+            kernel_vs_plain=err, atol=atol, max_abs_y=y, ms=ms,
+            call_ms=event_ms(lambda: synthv.synth(*call), 50),
+            plain_ms=event_ms(lambda: synthv.synth_plain(*call), 20), **b,
+            bound_share=b["bound_ms"] / ms)
+
+    # c9's window program: every pass adds C9_SYNTHS launches
+    d9 = tmp / "c9"
+    poly_session.build(cfg, 28, d9)
+    st9 = fixtures.load_state(d9, cuda)
+    reset_counts()
+    st9.render()
+    torch.cuda.synchronize()
+    cg = st9.compiled
+    progs = cg.programs()
+    replays = check_replays(st9, "c9")
+    for p in progs:
+        check(p.kernels.get("synth") == C9_SYNTHS == p.arms.get("synth")
+              and p.kernels.get("sampsyn") == C9_SYNTHS,
+              f"a c9 program captured {p.kernels} for the arms {p.arms}")
+    check(synthv.synth_launches == 2 * C9_SYNTHS * len(progs),
+          f"c9: {synthv.synth_launches} synth launches over {len(progs)} "
+          f"programs' warm-ups and captures")
+    passes = synthv.synth_launches
+    st9.fb.set_time(0)
+    cg.set_time(0)
+    cg.render_window(st9.fb, render_chunk_blocks(st9.cs), eager=True)
+    torch.cuda.synchronize()
+    check(synthv.synth_launches == passes + C9_SYNTHS,
+          f"an eager c9 window added {synthv.synth_launches - passes} synth "
+          f"launches")
+    cg.set_time(0)
+    walls = wall_render(st9, 5)
+    out["c9"] = {"programs": len(progs), "synth_a_pass": C9_SYNTHS,
+                 "captured": [p.kernels for p in progs],
+                 "wrapper_launches": passes, "eager_window_added":
+                 synthv.synth_launches - passes,
+                 "nodes": [p.nodes for p in progs], **replays,
+                 "render_device_s": walls,
+                 "render_device_median_s": statistics.median(walls)}
+    return out
+
+
 def main() -> int:
     # 1. environment
     if not torch.cuda.is_available():
@@ -2061,7 +2167,7 @@ def main() -> int:
         voices.launches = scan.launches = 0
         scan.max_decay_launches = scan.complex_launches = 0
         filters.biquad_seq_launches = synthv.sampsyn_launches = 0
-        fx.eq3_launches = 0
+        fx.eq3_launches = synthv.synth_launches = 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -2211,10 +2317,11 @@ def main() -> int:
             replays = check_replays(st, cfg)
             check_wrapper_counts(st.compiled, {
                 "voice_mix": voices.launches, "affine_scan": scan.launches,
-                "sampsyn": synthv.sampsyn_launches}, cfg)
+                "sampsyn": synthv.sampsyn_launches,
+                "synth": synthv.synth_launches}, cfg)
             counts = path_launches(st.compiled)
             if cfg == "c3":
-                for k in ("affine_scan", "sampsyn"):
+                for k in ("affine_scan", "sampsyn", "synth"):
                     check(counts.get(k, 0) > 0,
                           f"the c3 render launched no {k} kernel")
             _, cpu_ints, _ = render_wav(fixtures, d, cpu, b"",
@@ -2327,10 +2434,11 @@ def main() -> int:
             "voice_mix": voices.launches, "affine_scan": scan.launches,
             "max_decay_scan": scan.max_decay_launches,
             "complex_scan": scan.complex_launches, "eq3": fx.eq3_launches,
-            "sampsyn": synthv.sampsyn_launches}, "c4")
+            "sampsyn": synthv.sampsyn_launches,
+            "synth": synthv.synth_launches}, "c4")
         c4_counts = path_launches(st4.compiled)
         for k in ("voice_mix", "affine_scan", "max_decay_scan", "eq3",
-                  "sampsyn"):
+                  "sampsyn", "synth"):
             check(c4_counts.get(k, 0) > 0,
                   f"the c4 render launched no {k} kernel")
         check(scan.complex_launches == 0,
@@ -2543,7 +2651,8 @@ def main() -> int:
                          "max_decay_scan": scan.max_decay_launches,
                          "complex_scan": scan.complex_launches,
                          "eq3": fx.eq3_launches,
-                         "sampsyn": synthv.sampsyn_launches}
+                         "sampsyn": synthv.sampsyn_launches,
+                         "synth": synthv.synth_launches}
         # the programs still cached (a longer time table drops the others)
         sess_launches = path_launches(sst.compiled)
         sess_pool_mb = sst.compiled.pool_bytes / 1e6
@@ -2838,7 +2947,8 @@ def main() -> int:
         try:
             replays = shard_render.replay_check(sharded_projects, need={
                 "c4": ("voice_mix", "affine_scan", "max_decay_scan",
-                       "complex_scan", "sampsyn"), "c5": ("voice_mix",)})
+                       "complex_scan", "sampsyn", "synth"),
+                "c5": ("voice_mix",)})
         except RuntimeError as e:
             check(False, str(e))
         emit("sharded_replays", card=card, transport="nccl, 1 rank on cuda:0",
@@ -2893,6 +3003,15 @@ def main() -> int:
         emit("eq3_kernel", card=card, seconds=time.perf_counter() - t27,
              **eq3_res)
 
+        # 28. the Synth kernel at c9's window and c4's bass, and c9's
+        # window program's synth launches
+        t28 = time.perf_counter()
+        syn_res = synth_phase(fixtures, tmp, cuda, reset_counts)
+        per_kernel["synth"] = syn_res["kernel"]["c9"]
+        syn_err = syn_res["kernel"]["c9"]["kernel_vs_plain"]
+        emit("synth_kernel", card=card, seconds=time.perf_counter() - t28,
+             **syn_res)
+
     print(card, flush=True)
     # launches: what each kernel's main-path render ran on the card (its
     # programs' replays and warm-ups, path_launches): c5's for the voice
@@ -2921,6 +3040,11 @@ def main() -> int:
         # fuses; its error is phase 4's at c4's chord shape
         ("sampsyn", "sampsyn", "termdaw_tpu/ops/synthv.py sampsyn (XLA)",
          c4_counts["sampsyn"], ss_err),
+        # no Pallas kernel: the reference's Synth arm is jnp that XLA
+        # fuses; c4's bass windows; its error and time are phase 28's at
+        # c9's window
+        ("synth", "synth", "termdaw_tpu/ops/synthv.py synth (XLA)",
+         c4_counts["synth"], syn_err),
         # the voice mix at the wide configs' shapes (phase 24): c6's and
         # c7's renders, their first window's arguments
         *((f"voice_mix_stereo@{cfg}", "voice_mix",
@@ -2939,8 +3063,8 @@ def main() -> int:
         "bound_ms": per_kernel[name]["bound_ms"],
         "bound_by": per_kernel[name]["bound_by"],
         # no single PyTorch call computes a first-order recurrence, a
-        # max-decay scan, the voice mix, a biquad, the SampSyn arm or the
-        # eq3's crossover tree
+        # max-decay scan, the voice mix, a biquad, the SampSyn or Synth
+        # arm or the eq3's crossover tree
         "library_ms": None,
     } for name, src, replaces, n, err in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

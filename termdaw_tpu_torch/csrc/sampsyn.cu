@@ -42,12 +42,14 @@
 // int64 & 0xFFFFFFFF path gives. Every f32 operation is rounded on its
 // own in the plain version's order (__fmul_rn / __fadd_rn / __fsub_rn /
 // __fdiv_rn: nvcc would otherwise contract a multiply and an add into an
-// FMA): the segment clocks are sequential subtractions, a segment's
-// fraction a division by its f32 duration, clamps keep NaN as torch.clamp
-// does. Only the sum over slots differs, summed here in slot order.
+// FMA); the envelope is csrc/note_env.cuh's, which csrc/synth.cu shares;
+// clamps keep NaN as torch.clamp does. Only the sum over slots differs,
+// summed here in slot order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "note_env.cuh"
 
 // The envelope's and the table's constants, computed on the host as the
 // plain version's f32 operands (kernels.SampSynParams mirrors it).
@@ -81,40 +83,6 @@ struct Slot {
   float rel_v;  // the ADS envelope at rel_t, where the release starts
   int live;     // 0: an empty slot
 };
-
-// ops/adsr.apply_ads: the ADS segment of t, -1000 past the sustain window,
-// and any value <= -1 read as the sustain velocity.
-__device__ __forceinline__ float apply_ads(const SampSynParams& c, float t) {
-  float v;
-  if (t <= c.a32) {
-    const float fr = c.att_on ? __fdiv_rn(t, c.att_div) : 0.0f;
-    v = __fadd_rn(c.att_base, __fmul_rn(fr, c.att_slope));
-  } else if (t <= c.ad) {
-    const float fr =
-        c.dec_on ? __fdiv_rn(__fsub_rn(t, c.a32), c.dec_div) : 0.0f;
-    v = __fadd_rn(c.dec_base, __fmul_rn(fr, c.dec_slope));
-  } else if (t <= c.ads_end) {
-    const float fr =
-        c.sus_on ? __fdiv_rn(__fsub_rn(__fsub_rn(t, c.a32), c.d32), c.sus_div)
-                 : 0.0f;
-    v = __fadd_rn(c.sus_base, __fmul_rn(fr, c.sus_slope));
-  } else {
-    v = -1000.0f;
-  }
-  return v <= -1.0f ? c.sustain_vel : v;
-}
-
-// ops/adsr.apply_r: from `from` towards the release velocity, the
-// fraction t / release_sec clamped to 1 (NaN kept).
-__device__ __forceinline__ float apply_r(const SampSynParams& c, float t,
-                                         float from) {
-  float fr = 1.0f;
-  if (c.release_on) {
-    fr = __fdiv_rn(t, c.release_div);
-    fr = fr > 1.0f ? 1.0f : fr;
-  }
-  return __fadd_rn(from, __fmul_rn(fr, __fsub_rn(c.release_vel, from)));
-}
 
 // The mono sum of a window's SampSyn slots, written as stereo pairs. CTA
 // b takes audio block b / tiles, frames (b % tiles) * kTileFrames on.
@@ -159,7 +127,7 @@ sampsyn_kernel(const long long* __restrict__ frames,
         s.ads0 = __ldg(env_ads0 + blk * N + q);
         s.rel0 = __ldg(env_rel0 + blk * N + q);
         s.rel_t = __ldg(rel_t + q);
-        s.rel_v = apply_ads(c, s.rel_t);
+        s.rel_v = note_ads(c, s.rel_t);
       }
       s_slot[threadIdx.x] = s;
     }
@@ -176,10 +144,10 @@ sampsyn_kernel(const long long* __restrict__ frames,
         const float rel_el = __fadd_rn(s.rel0, ibv[r]);
         float env, tau;
         if (s.off == kSentinel || fr < s.off) {  // held at this frame
-          env = apply_ads(c, ads_t);
+          env = note_ads(c, ads_t);
           tau = ads_t;
         } else {
-          env = apply_r(c, rel_el, s.rel_v);
+          env = note_release(c, rel_el, s.rel_v);
           tau = __fadd_rn(rel_el, s.rel_t);
         }
         // the snapshots around tau: searchsorted(right) - 1 in [0, K-2]

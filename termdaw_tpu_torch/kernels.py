@@ -13,7 +13,9 @@ max_decay_scan.cu on csrc/scan_tile.cuh) take their tiling from
 the voice mix takes its regime, grid and shared memory from
 `voice_mix_plan`; the exact biquad lane (biquad_seq.cu) plans its own
 one-CTA-per-32-channels grid; the SampSyn arm (sampsyn.cu) takes the
-envelope's and the table's constants as a `SampSynParams`; the eq3's
+envelope's and the table's constants as a `SampSynParams`, the Synth arm
+(synth.cu) its oscillators', envelopes' and sine's as a `SynthParams`
+(both share csrc/note_env.cuh's envelope); the eq3's
 crossover tree (eq3.cu, four stages of the tiled scan) takes its run
 length from `scan_plan(T, 4, "eq3")` and its scratch from `eq3_launch`.
 
@@ -44,7 +46,7 @@ NVCC_FLAGS = (
 
 # every csrc/<name>.cu of the port
 KERNELS = ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan",
-           "biquad_seq", "sampsyn", "eq3")
+           "biquad_seq", "sampsyn", "eq3", "synth")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -158,24 +160,54 @@ def biquad_seq_lib() -> ctypes.CDLL:
                  [vp] * 9 + [ctypes.c_longlong, ctypes.c_int, vp])
 
 
+# csrc/note_env.cuh's envelope constants (ops/synthv._env_fields)
+_ENV_FLOATS = ("att_base", "att_slope", "att_div", "dec_base", "dec_slope",
+               "dec_div", "sus_base", "sus_slope", "sus_div", "a32", "d32",
+               "ad", "ads_end", "sustain_vel", "release_vel", "release_div")
+_ENV_INTS = ("att_on", "dec_on", "sus_on", "release_on")
+
+
 class SampSynParams(ctypes.Structure):
     """csrc/sampsyn.cu's SampSynParams: the envelope's segments (base,
     slope and f32 duration, and whether the duration is positive), its
     f32 edges, the sustain and release velocities, the release's f32
     duration, the amplitude and the table's W / 2^32, as the plain
     version's f32 operands (ops/synthv._sampsyn_params)."""
-    _fields_ = [(n, ctypes.c_float) for n in (
-        "att_base", "att_slope", "att_div", "dec_base", "dec_slope",
-        "dec_div", "sus_base", "sus_slope", "sus_div", "a32", "d32", "ad",
-        "ads_end", "sustain_vel", "release_vel", "release_div", "amp",
-        "wscale")] + [(n, ctypes.c_int) for n in (
-            "att_on", "dec_on", "sus_on", "release_on")]
+    _fields_ = [(n, ctypes.c_float) for n in _ENV_FLOATS + (
+        "amp", "wscale")] + [(n, ctypes.c_int) for n in _ENV_INTS]
+
+
+class SynthEnv(ctypes.Structure):
+    """csrc/synth.cu's SynthEnv: one oscillator's envelope constants."""
+    _fields_ = [(n, ctypes.c_float) for n in _ENV_FLOATS] + [
+        (n, ctypes.c_int) for n in _ENV_INTS]
+
+
+class SynthParams(ctypes.Structure):
+    """csrc/synth.cu's SynthParams, oscillators square, top-flat and
+    triangle: each one's envelope, on flag, the first oscillator on whose
+    envelope equals its own, f32 volume and shape constants (z, 1/z,
+    (1-z)/2, 2/(1+z)); the amplitude; ops/osc.sin_f32's constants (1/2pi,
+    2pi's three terms, the reduction's bound, 2pi), as the plain
+    version's f32 operands (ops/synthv._synth_params)."""
+    _fields_ = [("env", SynthEnv * 3), ("on", ctypes.c_int * 3),
+                ("env_of", ctypes.c_int * 3)] + [
+        (n, ctypes.c_float * 3) for n in (
+            "vol", "z", "inv_z", "half_1mz", "two_1pz")] + [
+        (n, ctypes.c_float) for n in (
+            "amp", "inv_2pi", "pi2_hi", "pi2_mid", "pi2_lo", "reduce_max",
+            "two_pi")]
 
 
 def sampsyn_lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load("sampsyn", "sampsyn_launch",
                  [vp] * 13 + [ci] * 6 + [vp, vp, vp])
+
+
+def synth_lib() -> ctypes.CDLL:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return _load("synth", "synth_launch", [vp] * 12 + [ci] * 4 + [vp] * 3)
 
 
 def eq3_lib() -> ctypes.CDLL:
@@ -418,6 +450,25 @@ def sampsyn_launch(frames: torch.Tensor, ib: torch.Tensor, cols: tuple,
                 ctypes.addressof(params), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sampsyn kernel launch failed: CUDA error {rc}")
+
+
+def synth_launch(frames: torch.Tensor, time2d: torch.Tensor,
+                 ib: torch.Tensor, cols: tuple, params: SynthParams,
+                 out: torch.Tensor, nb: int, bl: int) -> None:
+    """Launch csrc/synth.cu on the tensors' device and current stream:
+    `cols` the bake's idx, on_f, off_f, dead_f, vels, hz, rel_t, env_ads0
+    and env_rel0, in that order. The caller (ops/synthv.synth) has checked
+    devices, dtypes, shapes and contiguity; raises if the launch is
+    refused."""
+    fn = synth_lib().synth_launch
+    idx, on_f = cols[0], cols[1]
+    with torch.cuda.device(out.device):
+        rc = fn(frames.data_ptr(), time2d.data_ptr(), ib.data_ptr(),
+                *(t.data_ptr() for t in cols), nb, bl, idx.shape[1],
+                on_f.shape[0], ctypes.addressof(params), out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"synth kernel launch failed: CUDA error {rc}")
 
 
 def eq3_launch(x: torch.Tensor, sections: torch.Tensor, states: tuple,

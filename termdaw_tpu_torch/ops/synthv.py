@@ -16,12 +16,15 @@ SampSyn's wavetable phase is uint32 fixed point, phase = n * round(hz/sr *
 masked with 0xFFFFFFFF (the low 32 bits of the wrapped 64-bit product are
 the uint32 product) and becomes float32 only after the mask.
 
-On CUDA tensors `sampsyn` runs the whole SampSyn arm as one hand-written
-kernel (csrc/sampsyn.cu) or raises; on CPU tensors it runs
-`sampsyn_plain`, the same arithmetic in PyTorch.
+On CUDA tensors `synth` and `sampsyn` each run their whole arm as one
+hand-written kernel (csrc/synth.cu, csrc/sampsyn.cu) or raise; on CPU
+tensors they run `synth_plain` and `sampsyn_plain`, the same arithmetic
+in PyTorch.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -33,7 +36,9 @@ from ..utils.roofline import counted
 
 _U32 = 0xFFFFFFFF
 
-# launches of the CUDA kernel by sampsyn (CPU calls do not count)
+# launches of the CUDA kernels by synth and sampsyn (CPU calls do not
+# count)
+synth_launches = 0
 sampsyn_launches = 0
 
 
@@ -98,7 +103,7 @@ def _note_fields(bake, nb: int, bl: int, frames: torch.Tensor,
     return idx, fb, on_b, off_b, alive, clocks, vel
 
 
-def synth(
+def synth_plain(
     bake: dict[str, torch.Tensor], frames: torch.Tensor, nb: int, bl: int,
     sq_vol: float, sq_z: float, sq_conf: AdsrConf,
     tf_vol: float, tf_z: float, tf_conf: AdsrConf,
@@ -202,51 +207,68 @@ def sampsyn_plain(
     return torch.stack([mono, mono], dim=1)
 
 
-# the bake columns the kernel reads, in its launcher's order: the slot
-# table [nb, P], per note [N], per (block, note) [nb, N]; the first four
-# int32, the others float32
-_NOTE_COLS = ("on_f", "off_f", "dead_f", "vels", "cyc", "rel_t")
+# the bake columns a note kernel reads, in its launcher's order: the slot
+# table [nb, P], per note [N] (on, off and removal frames, velocity, the
+# pitch: SampSyn's phase increment `cyc`, the Synth's `hz`, the release
+# clock), per (block, note) [nb, N]; the first four int32, the others
+# float32
+_INT_COLS = ("idx", "on_f", "off_f", "dead_f")
 _BLOCK_COLS = ("env_ads0", "env_rel0")
-_COLS = ("idx",) + _NOTE_COLS + _BLOCK_COLS
-_INT_COLS = _COLS[:4]
 
 
-def _check(bake, frames, nb, bl, table_times, table_waves, ib) -> None:
+def _cols(pitch: str) -> tuple[str, ...]:
+    return _INT_COLS + ("vels", pitch, "rel_t") + _BLOCK_COLS
+
+
+_COLS = _cols("cyc")
+_SYNTH_COLS = _cols("hz")
+
+
+def _check(who: str, bake, cols, frames, nb, bl, tensors) -> None:
+    """A note kernel's arguments: the frames, `tensors` ((name, tensor,
+    shape or None) of float32) and the bake's `cols` on the frames'
+    device, of their dtypes, contiguous and of their shapes."""
     dev = frames.device
-    cols = [(k, bake.get(k), torch.int32 if k in _INT_COLS
-             else torch.float32) for k in _COLS]
     for name, t, dtype in [("frames", frames, torch.int64),
-                           ("ib", ib, torch.float32),
-                           ("table_times", table_times, torch.float32),
-                           ("table_waves", table_waves, torch.float32),
-                           *cols]:
+                           *((n, t, torch.float32) for n, t, _ in tensors),
+                           *((k, bake.get(k), torch.int32 if k in _INT_COLS
+                              else torch.float32) for k in cols)]:
         if not isinstance(t, torch.Tensor):
-            raise ValueError(f"sampsyn: the bake has no {name}")
+            raise ValueError(f"{who}: the bake has no {name}")
         if t.device != dev:
-            raise ValueError(f"sampsyn: {name} on {t.device}, frames on "
+            raise ValueError(f"{who}: {name} on {t.device}, frames on "
                              f"{dev}")
         if t.dtype != dtype:
-            raise TypeError(f"sampsyn: {name} is {t.dtype}, expected "
+            raise TypeError(f"{who}: {name} is {t.dtype}, expected "
                             f"{dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"sampsyn: {name} is not contiguous")
+            raise ValueError(f"{who}: {name} is not contiguous")
     if nb <= 0 or bl <= 0:
-        raise ValueError(f"sampsyn: bad window of {nb} blocks of {bl}")
+        raise ValueError(f"{who}: bad window of {nb} blocks of {bl}")
     idx, on_f = bake["idx"], bake["on_f"]
     if idx.dim() != 2 or idx.shape[0] != nb:
-        raise ValueError(f"sampsyn: idx must be [{nb}, P], got "
+        raise ValueError(f"{who}: idx must be [{nb}, P], got "
                          f"{list(idx.shape)}")
     if on_f.dim() != 1 or on_f.shape[0] < 1:
-        raise ValueError(f"sampsyn: on_f must be [N], N >= 1, got "
+        raise ValueError(f"{who}: on_f must be [N], N >= 1, got "
                          f"{list(on_f.shape)}")
     N = on_f.shape[0]
-    want = {"frames": (frames, [nb * bl]), "ib": (ib, [bl]),
-            **{k: (bake[k], [N]) for k in _NOTE_COLS},
+    want = {"frames": (frames, [nb * bl]),
+            **{n: (t, shape) for n, t, shape in tensors if shape},
+            **{k: (bake[k], [N]) for k in cols[1:]
+               if k not in _BLOCK_COLS},
             **{k: (bake[k], [nb, N]) for k in _BLOCK_COLS}}
     for name, (t, shape) in want.items():
         if list(t.shape) != shape:
-            raise ValueError(f"sampsyn: {name} must be {shape}, got "
+            raise ValueError(f"{who}: {name} must be {shape}, got "
                              f"{list(t.shape)}")
+
+
+def _check_sampsyn(bake, frames, nb, bl, table_times, table_waves,
+                   ib) -> None:
+    _check("sampsyn", bake, _COLS, frames, nb, bl,
+           [("ib", ib, [bl]), ("table_times", table_times, None),
+            ("table_waves", table_waves, None)])
     K = table_times.shape[0] if table_times.dim() == 1 else 0
     if K < 1 or table_waves.dim() != 2 or table_waves.shape[0] != K \
             or table_waves.shape[1] < 1:
@@ -284,19 +306,15 @@ def sampsyn_work(bake: dict[str, torch.Tensor], frames: torch.Tensor,
     return float(nb * bl * P * per), float(nbytes + nb * bl * 2 * 4)
 
 
-def _sampsyn_params(conf: AdsrConf, W: int):
-    """The kernel's SampSynParams: the plain version's f32 operands (the
-    constants ops/adsr.py computes in numpy float32, the amplitude as
-    torch rounds a Python float to the tensor's f32)."""
-    from ..kernels import SampSynParams
-
+def _env_fields(conf: AdsrConf) -> dict:
+    """csrc/note_env.cuh's envelope constants: the plain version's f32
+    operands (the constants ops/adsr.py computes in numpy float32)."""
     a32, ad, ads_end = _seg_bounds(conf)
-    amp = 1.0 / conf.max_vel() if conf.max_vel() != 0.0 else 0.0
 
     def slope(a, b):
         return float(np.float32(b) - np.float32(a))
 
-    return SampSynParams(
+    return dict(
         att_base=_f32(conf.std_vel),
         att_slope=slope(conf.std_vel, conf.attack_vel),
         att_div=_f32(conf.attack_sec),
@@ -309,12 +327,21 @@ def _sampsyn_params(conf: AdsrConf, W: int):
         a32=float(a32), d32=_f32(conf.decay_sec), ad=float(ad),
         ads_end=float(ads_end), sustain_vel=_f32(conf.sustain_vel),
         release_vel=_f32(conf.release_vel),
-        release_div=_f32(conf.release_sec), amp=_f32(amp),
-        wscale=_f32(W / 2.0**32),
+        release_div=_f32(conf.release_sec),
         att_on=int(conf.attack_sec > 0.0), dec_on=int(conf.decay_sec > 0.0),
         sus_on=int(conf.sustain_sec > 0.0),
         release_on=int(conf.release_sec > 0.0),
     )
+
+
+def _sampsyn_params(conf: AdsrConf, W: int):
+    """The kernel's SampSynParams: the envelope's constants, the amplitude
+    as torch rounds a Python float to the tensor's f32, and W / 2^32."""
+    from ..kernels import SampSynParams
+
+    amp = 1.0 / conf.max_vel() if conf.max_vel() != 0.0 else 0.0
+    return SampSynParams(**_env_fields(conf), amp=_f32(amp),
+                         wscale=_f32(W / 2.0**32))
 
 
 @counted(sampsyn_work)
@@ -329,7 +356,7 @@ def sampsyn(
     tensors run the hand-written kernel; CPU tensors the plain
     version."""
     global sampsyn_launches
-    _check(bake, frames, nb, bl, table_times, table_waves, ib)
+    _check_sampsyn(bake, frames, nb, bl, table_times, table_waves, ib)
     dev = frames.device
     if dev.type == "cpu":
         return sampsyn_plain(bake, frames, nb, bl, conf, table_times,
@@ -343,4 +370,106 @@ def sampsyn(
                    table_waves, _sampsyn_params(conf, table_waves.shape[1]),
                    out, nb, bl)
     sampsyn_launches += 1
+    return out
+
+
+# f32 operations of a slot-frame in synth_plain, a sine counted as one:
+# the two envelope clocks, the amplitude's multiply and the slot sum's add
+# (SYNTH_FLOPS), and for each oscillator on (SYNTH_OSC_FLOPS, square,
+# top-flat, triangle) its envelope (an ADS segment or the release: at
+# most 2 subtractions, a division, a multiply and an add), its three
+# products (velocity, envelope, volume) and its add into the slot's value
+# (9), and its shape:
+#   square:   t*hz, x 2pi, the reduction (x / 2pi, 3 products and 3
+#             subtractions), the sine, x 1/z (11);
+#   top-flat: the same 10 up to the sine, + (1-z)/2, x 2/(1+z) (12);
+#   triangle: t*hz, + 1/2, the subtraction, x 4, - 1 (5)
+SYNTH_FLOPS = 4
+SYNTH_OSC_FLOPS = (20, 21, 14)
+
+
+def synth_work(bake: dict[str, torch.Tensor], frames: torch.Tensor, nb: int,
+               bl: int, sq_vol: float, sq_z: float, sq_conf: AdsrConf,
+               tf_vol: float, tf_z: float, tf_conf: AdsrConf, tr_vol: float,
+               tr_conf: AdsrConf, time2d: torch.Tensor, ib: torch.Tensor
+               ) -> tuple[float, float]:
+    """(flops, bytes) of one synth: SYNTH_FLOPS a slot-frame and each
+    oscillator on's SYNTH_OSC_FLOPS; the frames, time2d, the in-block
+    clock and the bake columns the kernel reads, read once, the [nb*bl,
+    2] mix written once."""
+    P = bake["idx"].shape[1]
+    per = SYNTH_FLOPS + sum(n for n, vol in zip(
+        SYNTH_OSC_FLOPS, (sq_vol, tf_vol, tr_vol)) if vol > 0.0)
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        frames, time2d, ib, *(bake[k] for k in _SYNTH_COLS)))
+    return float(nb * bl * P * per), float(nbytes + nb * bl * 2 * 4)
+
+
+def _synth_params(sq_vol: float, sq_z: float, sq_conf: AdsrConf,
+                  tf_vol: float, tf_z: float, tf_conf: AdsrConf,
+                  tr_vol: float, tr_conf: AdsrConf):
+    """The kernel's SynthParams: each oscillator's on flag (volume > 0),
+    f32 volume, envelope constants and the first oscillator on with equal
+    ones, the shapes' constants as ops/osc.py rounds them (numpy f32),
+    the amplitude as torch rounds a Python float, and sin_f32's
+    constants."""
+    from ..kernels import SynthEnv, SynthParams
+
+    vols = (sq_vol, tf_vol, tr_vol)
+    on = [int(v > 0.0) for v in vols]
+    envs = [_env_fields(c) for c in (sq_conf, tf_conf, tr_conf)]
+    env_of = [next(j for j in range(o + 1)
+                   if j == o or (on[j] and envs[j] == envs[o]))
+              for o in range(3)]
+    amp = sq_vol * sq_conf.max_vel() + tf_vol * tf_conf.max_vel() \
+        + tr_vol * tr_conf.max_vel()
+    amp = 1.0 / amp if amp != 0.0 else 0.0
+    p = SynthParams(on=(ctypes.c_int * 3)(*on),
+                    env_of=(ctypes.c_int * 3)(*env_of),
+                    vol=(ctypes.c_float * 3)(*(_f32(v) for v in vols)),
+                    amp=_f32(amp), inv_2pi=osc._INV_2PI,
+                    pi2_hi=osc._PI2_HI, pi2_mid=osc._PI2_MID,
+                    pi2_lo=osc._PI2_LO, reduce_max=osc._REDUCE_MAX,
+                    two_pi=_f32(osc.TWO_PI))
+    for o in range(3):
+        p.env[o] = SynthEnv(**envs[o])
+    one, two = np.float32(1.0), np.float32(2.0)
+    if on[0]:
+        z = np.float32(sq_z)
+        p.z[0], p.inv_z[0] = float(z), float(one / z)
+    if on[1]:
+        z = np.float32(tf_z)
+        p.z[1] = float(z)
+        p.half_1mz[1] = float((one - z) / two)
+        p.two_1pz[1] = float(two / (one + z))
+    return p
+
+
+@counted(synth_work)
+def synth(
+    bake: dict[str, torch.Tensor], frames: torch.Tensor, nb: int, bl: int,
+    sq_vol: float, sq_z: float, sq_conf: AdsrConf,
+    tf_vol: float, tf_z: float, tf_conf: AdsrConf,
+    tr_vol: float, tr_conf: AdsrConf,
+    time2d: torch.Tensor, ib: torch.Tensor,
+) -> torch.Tensor:
+    """The Synth arm of a window, [nb*bl, 2] (see synth_plain). CUDA
+    tensors run the hand-written kernel; CPU tensors the plain version."""
+    global synth_launches
+    _check("synth", bake, _SYNTH_COLS, frames, nb, bl,
+           [("time2d", time2d, [nb, bl]), ("ib", ib, [bl])])
+    dev = frames.device
+    if dev.type == "cpu":
+        return synth_plain(bake, frames, nb, bl, sq_vol, sq_z, sq_conf,
+                           tf_vol, tf_z, tf_conf, tr_vol, tr_conf, time2d,
+                           ib)
+    if dev.type != "cuda":
+        raise ValueError(f"synth: unsupported device {dev}")
+    from ..kernels import synth_launch
+
+    out = torch.empty((nb * bl, 2), dtype=torch.float32, device=dev)
+    synth_launch(frames, time2d, ib, tuple(bake[k] for k in _SYNTH_COLS),
+                 _synth_params(sq_vol, sq_z, sq_conf, tf_vol, tf_z, tf_conf,
+                               tr_vol, tr_conf), out, nb, bl)
+    synth_launches += 1
     return out

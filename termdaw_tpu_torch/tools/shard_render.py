@@ -273,6 +273,7 @@ def _reset_counts() -> None:
     voices.launches = scan.launches = 0
     scan.max_decay_launches = scan.complex_launches = 0
     filters.biquad_seq_launches = synthv.sampsyn_launches = 0
+    synthv.synth_launches = 0
 
 
 def sharded_programs(cg) -> list[dict]:
@@ -381,12 +382,12 @@ def single_walls(d: Path, packets: bytes, reps: int) -> dict:
 def summarize(name: str, res: dict, single_ints, bd: int) -> dict:
     """The checks and the printed numbers of one sharded run: raises
     RuntimeError if a rank launched no kernel of the project's path (c4:
-    all five of the default lane; c5: the voice mix), if its sharded
+    the six of the default lane; c5: the voice mix), if its sharded
     programs are not all captured (NCCL) or all eager (gloo), or if rank
     0's WAV is out of bound against `single_ints`."""
     ranks = res["ranks"]
     need = ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan",
-            "sampsyn") if name == "c4" else ("voice_mix",)
+            "sampsyn", "synth") if name == "c4" else ("voice_mix",)
     for r in ranks:
         for k in need:
             if r["launches"][k] <= 0:

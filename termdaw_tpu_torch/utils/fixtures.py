@@ -419,6 +419,34 @@ def sampsyn_window(device, nb: int, bl: int, P: int, N: int, K: int = 2,
             torch.from_numpy(np.asarray(waves, np.float32)).to(device))
 
 
+def synth_window(device, nb: int, bl: int, P: int, N: int, seed: int = 0,
+                 sr: int = 48000, empty: float = 0.25, wrap: bool = False,
+                 start_sec: float = 0.0):
+    """Arguments of ops/synthv.synth for one window: (bake, frames, time2d,
+    ib). The bake, frames and ib are sampsyn_window's (K, W and the table
+    aside), each note's pitch in Hz beside its phase increment (`hz`, cyc
+    * sr); time2d is f32(frame) / f32(sr), as graph/compile.time_table
+    gives it. `start_sec` moves the window and its notes that much later:
+    at a few hundred seconds the sine's argument t * hz * 2pi passes
+    ops/osc's 4e5 reduction bound for the higher pitches."""
+    import torch
+
+    bake, frames, ib, _, _ = sampsyn_window(device, nb, bl, P, N, seed=seed,
+                                            sr=sr, empty=empty, wrap=wrap)
+    shift = int(round(start_sec * sr))
+    if shift:
+        frames = frames + shift
+        bake = dict(bake, on_f=bake["on_f"] + shift,
+                    dead_f=bake["dead_f"] + shift,
+                    off_f=torch.where(bake["off_f"] == SENTINEL,
+                                      bake["off_f"], bake["off_f"] + shift))
+    bake = dict(bake, hz=bake["cyc"] * float(sr))
+    time2d = torch.from_numpy(
+        frames.cpu().numpy().astype(np.float32) / np.float32(sr)
+    ).reshape(nb, bl).to(device)
+    return bake, frames, time2d, ib
+
+
 def read_wav_ints(path) -> tuple[np.ndarray, int]:
     """Interleaved int samples and the rate of a 16/24/32-bit PCM WAV, read
     with the standard library (independent of the writer)."""

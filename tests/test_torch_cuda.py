@@ -1,6 +1,7 @@
 """The port on a CUDA card: the voice-mix, affine-scan, max-decay,
-complex-scan, exact-biquad, SampSyn and eq3 kernels against their plain
-versions (the SampSyn kernel also replayed from a CUDA graph), the
+complex-scan, exact-biquad, SampSyn, Synth and eq3 kernels against their
+plain versions (the SampSyn and Synth kernels also replayed from a CUDA
+graph), the
 effects, small renders (the exact lane's, a chain-served one and a 24-bit
 one with the native host library on and off among them), playback on
 the card against the port's CPU path, and sharded windows replayed from
@@ -28,8 +29,9 @@ from termdaw_tpu_torch.parallel.mesh import gather
 from termdaw_tpu_torch.tools import shard_render
 from termdaw_tpu_torch.ops.adsr import AdsrConf, hit_conf
 from termdaw_tpu_torch.utils.fixtures import (
-    load_state, read_wav_ints, sampsyn_window, write_c1_project,
-    write_c2_project, write_c3_project, write_c4_project, write_c5_project,
+    load_state, read_wav_ints, sampsyn_window, synth_window,
+    write_c1_project, write_c2_project, write_c3_project, write_c4_project,
+    write_c5_project,
 )
 from benchmark.projects.mix_session import EQ_HIGH, EQ_LOW
 
@@ -622,6 +624,151 @@ def test_poly_sampsyn_kernel_at_the_cell_window_on_card(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
 
 
+# Synth windows (utils/fixtures.synth_window): c9's cell window (32 slots,
+# half empty) and c4's bass (2 slots); one and 64 slots, every slot
+# empty, notes begun 2^31 frames before the window (frames since note-on
+# past 2^31), a block length that is not a multiple of a CTA's frames,
+# and a window 300 s in, where t * hz * 2pi passes ops/osc's 4e5
+# reduction bound for the higher pitches; notes are released inside the
+# window and after it. Each window under its oscillator sets: c9's (all
+# three on one ADSR), c4's bass (square and top-flat, two ADSRs, the
+# triangle off), each oscillator alone, all volumes 0, and three ADSRs
+# with zero-length segments (no attack, no release; velocities <= -1)
+_SYN_HIT = hit_conf(0.001, 0.02, 0.0, 0.0, 0.0, 0.0)
+_SYN_NOTE = hit_conf(0.01, 0.1, 0.8, 5.0, 0.2, 0.5)
+_SYN_ZERO = AdsrConf(0.2, 0.0, 1.0, 0.05, 0.5, 0.1, 0.3, 0.0, 0.0)
+_SYN_NEG = AdsrConf(0.0, 0.01, -2.0, 0.02, 0.5, 0.03, 0.2, 0.04, 0.0)
+_SYN_OSCS = {
+    "c9": (0.5, 0.6, _POLY_CONF, 0.7, 0.8, _POLY_CONF, 0.6, _POLY_CONF),
+    "c4_bass": (0.4, 0.3, _SYN_HIT, 1.0, 0.8, _SYN_NOTE, 0.0, AdsrConf()),
+    "square": (0.5, 0.6, _SYN_NOTE, 0.0, 0.8, _SYN_NOTE, 0.0, _SYN_NOTE),
+    "top_flat": (0.0, 0.6, _SYN_HIT, 0.7, 0.8, _SYN_NOTE, 0.0, _SYN_NEG),
+    "triangle": (0.0, 0.6, _SYN_NOTE, 0.0, 0.8, _SYN_HIT, 0.6, _SYN_NEG),
+    "silent": (0.0, 0.6, _SYN_NOTE, 0.0, 0.8, _SYN_HIT, 0.0, _SYN_NEG),
+    "zero_segments": (0.5, 0.6, _SYN_ZERO, 0.7, 0.3, _SYN_NEG, 0.6,
+                      _SYN_HIT),
+}
+_ALL_OSCS = ("c9", "c4_bass", "square", "top_flat", "triangle", "silent",
+             "zero_segments")
+_SYNTH = {
+    "c9": (dict(nb=375, bl=1024, P=32, N=128, empty=0.5), ("c9",)),
+    "c4_bass": (dict(nb=375, bl=1024, P=2, N=64), ("c4_bass",)),
+    "P1": (dict(nb=32, bl=1024, P=1, N=12, empty=0.0), _ALL_OSCS),
+    "P64": (dict(nb=8, bl=1024, P=64, N=96), _ALL_OSCS),
+    "empty": (dict(nb=8, bl=512, P=8, N=16, empty=1.0), ("c9", "c4_bass")),
+    "wrap": (dict(nb=8, bl=700, P=8, N=16, wrap=True), _ALL_OSCS),
+    "ragged_bl": (dict(nb=5, bl=1500, P=8, N=16), _ALL_OSCS),
+    "far": (dict(nb=16, bl=1024, P=8, N=24, start_sec=300.0), _ALL_OSCS),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SYNTH))
+def test_synth_kernel_matches_plain_on_card(cuda, case):
+    """csrc/synth.cu against synth_plain on the card, each window under its
+    oscillator sets: within 2e-6, 1e-5 at 32 and 64 slots (each slot's
+    value is the plain version's, the same sinf and the same f32 order;
+    only the sum over slots differs, the kernel's in slot order and
+    torch.sum's in its own), one launch counted a call."""
+    w, oscs = _SYNTH[case]
+    bake, frames, time2d, ib = synth_window(cuda, seed=7, **w)
+    nb, bl = w["nb"], w["bl"]
+    off, T = bake["off_f"].cpu().numpy(), int(frames[-1]) + 1
+    if case not in ("empty", "wrap"):
+        assert ((off > int(frames[0])) & (off < T)).any()  # off mid-window
+    if case == "far":  # the sine's arguments on both sides of 4e5
+        hz = bake["hz"]
+        assert float(time2d.min() * hz.min()) * 2 * np.pi < 4e5 \
+            < float(time2d.max() * hz.max()) * 2 * np.pi
+    # 2e-6, as the SampSyn kernel is held; at 32 and 64 slots 1e-5, as the
+    # SampSyn kernel at c9's window: up to 32 and more roundings of
+    # partial sums below 4 at 2.4e-7 each, in either order
+    atol = 2e-6 if w["P"] <= 8 else 1e-5
+    for name in oscs:
+        args = _SYN_OSCS[name]
+        n0 = synthv.synth_launches
+        got = synthv.synth(bake, frames, nb, bl, *args, time2d, ib)
+        torch.cuda.synchronize()
+        assert synthv.synth_launches == n0 + 1
+        want = synthv.synth_plain(bake, frames, nb, bl, *args, time2d, ib)
+        assert got.shape == want.shape == (nb * bl, 2)
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=0, atol=atol,
+                                   msg=f"{case}, {name}")
+        assert torch.equal(got[:, 0], got[:, 1])
+        if case != "empty" and name != "silent":
+            assert float(want.abs().max()) > 0.05, name
+        if case == "empty" or name == "silent":
+            assert not bool(got.any())
+
+
+def test_synth_kernel_replays_in_a_cuda_graph_on_card(cuda):
+    """Captured in a CUDA graph, the kernel reads its inputs at replay: a
+    replay equals the eager call, and again after new inputs are copied
+    into the captured tensors."""
+    args = _SYN_OSCS["c9"]
+    first = synth_window(cuda, 16, 1024, 8, 24, seed=3)
+    second = synth_window(cuda, 16, 1024, 8, 24, seed=4)
+    bake, frames, time2d, ib = first
+
+    def run():
+        return synthv.synth(bake, frames, 16, 1024, *args, time2d, ib)
+
+    eager = [synthv.synth(a[0], a[1], 16, 1024, *args, a[2], a[3])
+             for a in (first, second)]
+    run()  # loaded before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager[0])
+    for k, v in second[0].items():
+        bake[k].copy_(v)
+    for dst, src in zip((frames, time2d, ib), second[1:]):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager[1])
+
+
+def test_synth_launches_one_a_window_on_card(cuda, tmp_path):
+    """A c3 render (one Synth vertex, the bass): each captured program
+    holds one synth launch, the wrapper counts its warm-up and capture; an
+    eager window counts one more."""
+    write_c3_project(tmp_path, 2.0, 8000, 256)
+    st = load_state(tmp_path, cuda)
+    n0 = synthv.synth_launches
+    st.render()
+    progs = st.compiled.programs()
+    assert progs and all(p.kernels.get("synth") == 1 for p in progs)
+    assert synthv.synth_launches - n0 == 2 * len(progs)
+    n1 = synthv.synth_launches
+    st.fb.set_time(0)
+    st.compiled.set_time(0)
+    st.compiled.render_window(st.fb, 4, eager=True)
+    assert synthv.synth_launches == n1 + 1
+
+
+def test_synth_wrapper_refuses_mixes_on_card(cuda):
+    """A bake column, time2d or the in-block clock on the CPU beside CUDA
+    frames raises before any launch; CPU tensors never count a launch."""
+    args = _SYN_OSCS["c4_bass"]
+    n0 = synthv.synth_launches
+    bake, frames, time2d, ib = synth_window(cuda, 4, 256, 8, 12)
+    synthv.synth({k: v.cpu() for k, v in bake.items()}, frames.cpu(), 4, 256,
+                 *args, time2d.cpu(), ib.cpu())
+    assert synthv.synth_launches == n0
+    with pytest.raises(ValueError, match="on cpu"):
+        synthv.synth(dict(bake, hz=bake["hz"].cpu()), frames, 4, 256, *args,
+                     time2d, ib)
+    with pytest.raises(ValueError, match="on cpu"):
+        synthv.synth(bake, frames, 4, 256, *args, time2d.cpu(), ib)
+    with pytest.raises(ValueError, match="on cpu"):
+        synthv.synth(bake, frames, 4, 256, *args, time2d, ib.cpu())
+    assert synthv.synth_launches == n0
+
+
 # the crossovers the fused eq3 is held at: every pair of the mix session
 # (projects/mix_session.EQ_LOW x EQ_HIGH), c4's and the clamp edges (the
 # lowest f_lo, the highest f_hi at 48 kHz); a few frames, c4's and c8's
@@ -817,9 +964,11 @@ def test_small_c4_render_on_card_matches_cpu(cuda, tmp_path):
     write_c4_project(tmp_path, 2.0, 8000, 256, render_sr=8000)
     scan.launches = scan.max_decay_launches = scan.complex_launches = 0
     voices.launches = synthv.sampsyn_launches = fx.eq3_launches = 0
+    synthv.synth_launches = 0
     load_state(tmp_path, cuda).render()
     assert min(voices.launches, scan.launches, scan.max_decay_launches,
-               fx.eq3_launches, synthv.sampsyn_launches) > 0
+               fx.eq3_launches, synthv.sampsyn_launches,
+               synthv.synth_launches) > 0
     assert scan.complex_launches == 0  # the eq3 was its only user here
     got, _ = read_wav_ints(tmp_path / "outp.wav")
     load_state(tmp_path, torch.device("cpu")).render()
@@ -1308,7 +1457,7 @@ def test_sharded_windows_replay_with_nccl_inside_on_card(cuda, tmp_path):
     eager, give bit-identical audio and numeric state; every window of
     the cached one replays a captured program that holds its collectives
     (as many as the eager program issues a window, added to the mesh's
-    count by each replay) and launches all five c4 kernels; it raises
+    count by each replay) and launches all six c4 kernels; it raises
     otherwise."""
     if not torch.distributed.is_nccl_available():
         pytest.skip("needs torch.distributed's NCCL backend")
@@ -1317,7 +1466,7 @@ def test_sharded_windows_replay_with_nccl_inside_on_card(cuda, tmp_path):
     r = shard_render.replay_check(
         [("c4", str(tmp_path), b"")], windows=windows, reps=1,
         need={"c4": ("voice_mix", "affine_scan", "max_decay_scan",
-                     "complex_scan", "sampsyn")})["c4"]
+                     "complex_scan", "sampsyn", "synth")})["c4"]
     assert r["audio_bit_identical"] and r["state_bit_identical"]
     assert sorted(p["nb_total"] for p in r["programs"]) == [15, 16, 32]
     assert all(p["captured"] and p["collectives"] > 0 and p["ranks"] == 1

@@ -186,7 +186,7 @@ class TestOracleEquivalence:
             f'add_synth("v", 0.7, 0.0, "ev", 0.5, 0.4, {hit}, '
             f'0.8, 0.6, {note}, 0.3, {note});\nset_output("v");', device,
         )
-        got = engine_audio(st)
+        got = engine_audio(st, ["synth"])
         fl = O.OracleFloww(ev, SR, BL)
         hit9 = O.hit6([0.005, 0.02, 0.3, 0.05, 0.2, 0.1])
         note9 = O.hit6([0.01, 0.05, 0.8, 0.5, 0.4, 0.15])
@@ -224,7 +224,7 @@ class TestOracleEquivalence:
             f'add_synth("v", 0.7, 0.0, "ev", 0.5, 0.4, {hit}, '
             f'0.8, 0.6, {note}, 0.3, {note});\nset_output("v");', device,
         )
-        got = engine_audio(st)
+        got = engine_audio(st, ["synth"])
         fl = O.OracleFloww(ev, SR, BL)
         hit9 = O.hit6([0.005, 0.02, 0.3, 0.05, 0.2, 0.1])
         note9 = O.hit6([0.01, 0.05, 0.8, 0.5, 0.4, 0.15])

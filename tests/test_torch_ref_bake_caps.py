@@ -783,7 +783,7 @@ set_output("sum");
         assert st.loaded
         cg = st.compiled
         check(cg, "after refresh")
-        with launched(device, "voice_mix"):
+        with launched(device, "voice_mix", "synth"):
             self._render_np(st)
         check(cg, "after render 1 (+closing set_time)")
         self._render_np(st)

@@ -165,7 +165,7 @@ class TestWindowInvariance:
         test_windowed_equals_oneshot."""
         st, out = self.build(tmp_path, device)
         monkeypatch.setattr(state_mod, "RENDER_WINDOW_BLOCKS", 1024)
-        with launched(device, "voice_mix", "affine_scan"):
+        with launched(device, "voice_mix", "affine_scan", "synth"):
             st.render()
         oneshot, _ = read_wav(out)
 
@@ -187,7 +187,7 @@ class TestWindowInvariance:
         """Mirror of tests/test_engine.py::TestWindowInvariance::
         test_no_nans_and_envelope_gates."""
         st, out = self.build(tmp_path, device)
-        with launched(device, "voice_mix", "affine_scan"):
+        with launched(device, "voice_mix", "affine_scan", "synth"):
             st.render()
         audio, _ = read_wav(out, scale=True)
         assert not np.any(np.isnan(audio))

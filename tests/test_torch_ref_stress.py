@@ -107,7 +107,7 @@ class TestGoldenStats:
         st = load_state(tmp_path, device)
         assert st.loaded
         with launched(device, "voice_mix", "affine_scan", "max_decay_scan",
-                      "eq3", "sampsyn"):
+                      "eq3", "sampsyn", "synth"):
             st.scan_exact()
             st.render()
         audio, spec = read_wav(st._resolve(st.output_file), scale=True)

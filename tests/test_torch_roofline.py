@@ -25,8 +25,9 @@ from termdaw_tpu_torch.ops import filters, fx, scan, synthv, voices
 from termdaw_tpu_torch.ops.adsr import hit_conf
 from termdaw_tpu_torch.utils import roofline
 from termdaw_tpu_torch.utils.fixtures import (
-    load_state, read_wav_ints, sampsyn_window, write_c1_project,
-    write_c2_project, write_c3_project, write_c4_project, write_c5_project,
+    load_state, read_wav_ints, sampsyn_window, synth_window,
+    write_c1_project, write_c2_project, write_c3_project, write_c4_project,
+    write_c5_project,
 )
 
 torch.set_num_threads(1)
@@ -208,6 +209,18 @@ def _wrapper_call(name: str, rng):
         # [nb, N] clocks, 4 bytes each
         ins = nb * bl * 8 + (bl + K + K * W + nb * P + 6 * N + 2 * nb * N) * 4
         return synthv.sampsyn, args, (28 * nb * bl * P, ins + nb * bl * 2 * 4)
+    if name == "synth":
+        nb, bl, P, N = 6, 32, 4, 9
+        bake, frames, time2d, ib = synth_window(
+            CPU, nb, bl, P, N, seed=int(rng.integers(1 << 30)))
+        note = hit_conf(0.01, 0.1, 0.8, 5.0, 0.2, 0.5)
+        args = (bake, frames, nb, bl, 0.4, 0.3,
+                hit_conf(0.001, 0.02, 0.0, 0.0, 0.0, 0.0), 1.0, 0.8, note,
+                0.5, note, time2d, ib)
+        # the int64 frames; time2d, ib, idx, six note columns and two
+        # [nb, N] clocks, 4 bytes each; all three oscillators on
+        ins = nb * bl * 8 + (nb * bl + bl + nb * P + 6 * N + 2 * nb * N) * 4
+        return synthv.synth, args, (59 * nb * bl * P, ins + nb * bl * 2 * 4)
     if name == "eq3_crossover":
         eff = fx.EFFECTS["eq3"]
         static = fx.bind_static(eff, 48000, {"low_freq": 150.0,
@@ -226,7 +239,7 @@ def _wrapper_call(name: str, rng):
 @pytest.mark.parametrize("name", [
     "affine_scan", "max_decay_scan", "complex_affine_scan",
     "voice_mix_stereo", "biquad_apply_sequential", "sampsyn",
-    "eq3_crossover"])
+    "eq3_crossover", "synth"])
 def test_kernel_wrapper_records_its_formula(name):
     fn, args, (flops, nbytes) = _wrapper_call(name, np.random.default_rng(1))
     want = fn(*args)
