@@ -12,8 +12,10 @@ bake with fused groups (`_bake_all`, `_group_pool`, `_bake_fused_group`,
 resets. The device side runs eagerly in PyTorch on an explicit device
 instead of as a jitted XLA program:
 
-* each sample is uploaded once at build and padded (and, for a fused
-  group over several samples, concatenated) on the device; each window's
+* each sample is uploaded once at build; a voice mix reads it padded,
+  alone or, for a fused group over several samples, side by side with
+  the group's others in one pool that every group over the same samples
+  shares (`group_pool_bytes`); each window's
   bake tables are two uploads (one int32, one float32 buffer) that
   `_unpack_bakes` slices;
 * a chain window keeps those two uploaded buffers, its layout and its
@@ -98,6 +100,7 @@ channel amps (compile.py:1709-1723 on the TPU).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -469,18 +472,23 @@ def _nbytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _note_fill(bakes: dict[str, dict[str, np.ndarray]]) -> tuple[int, int]:
-    """(slots, voices) of a window's polyphonic instance tables (the
-    [nb, P] `idx` of SampleMulti, DebugSine, Synth and SampSyn bakes): nb
-    x P each, and the entries that hold an instance (idx >= 0). A fused
-    SampleMulti group's voice table is not an instance table."""
-    slots = voices = 0
-    for tbl in bakes.values():
-        idx = tbl.get("idx")
-        if idx is not None:
-            slots += int(idx.size)
-            voices += int(np.count_nonzero(idx >= 0))
-    return slots, voices
+def _table_fill(bakes: dict[str, dict[str, np.ndarray]]
+                ) -> tuple[int, int, int, int]:
+    """(note slots, note voices, group slots, group voices) of a window's
+    tables: its polyphonic instance tables (the [nb, P] `idx` of
+    SampleMulti, DebugSine, Synth and SampSyn bakes), nb x P each and the
+    entries that hold an instance (idx >= 0); its fused SampleMulti
+    groups' voice tables ([nb, Pf]), nb x Pf each and the entries that
+    hold a voice (vel != 0: a hit is louder than 0.001)."""
+    fill = [0, 0, 0, 0]
+    for key, tbl in bakes.items():
+        if key.startswith("fused"):
+            fill[2] += int(tbl["vel"].size)
+            fill[3] += int(np.count_nonzero(tbl["vel"]))
+        elif "idx" in tbl:
+            fill[0] += int(tbl["idx"].size)
+            fill[1] += int(np.count_nonzero(tbl["idx"] >= 0))
+    return tuple(fill)
 
 
 # which vertex kinds carry host-side bake state, and their carry class
@@ -629,7 +637,8 @@ class CompiledGraph:
 
         # device-resident constants (one upload each)
         self.samples: list[torch.Tensor] = []
-        self.samples_padded: dict = {}  # pos | ("fused", c) -> [2, Lpad]
+        # pos | ("fused", sorted positions) -> [2, Lpad] (see below)
+        self.samples_padded: dict = {}
         self.wavetables: list[tuple[torch.Tensor, torch.Tensor]] = []
         sample_pos: dict[int, int] = {}
         self.statics: dict[int, _VertexStatic] = {}
@@ -647,14 +656,6 @@ class CompiledGraph:
                     )
                 kw["sample_pos"] = sample_pos[si]
                 kw["sample_len"] = len(sample)
-                if v.kind == G.SAMPLEMULTI and kw["sample_pos"] not in (
-                    self.samples_padded
-                ):
-                    self.samples_padded[kw["sample_pos"]] = (
-                        voices.make_padded_sample(
-                            self.samples[kw["sample_pos"]], bl
-                        )
-                    )
             if v.kind in (
                 G.SAMPLEMULTI, G.SAMPLELERP, G.DEBUGSINE, G.SYNTH,
                 G.SAMPSYN, G.ADSR,
@@ -773,26 +774,37 @@ class CompiledGraph:
         self._fused_members = frozenset(
             m for ms in self.fused_groups.values() for m in ms
         )
-        # per-group concat-buffer layout: unique sample positions in member
-        # order, each segment's base offset within the concatenated buffer
-        self._fused_layout: dict[int, tuple[tuple[int, ...], dict[int, int]]] = {}
+        # the padded buffers the voice mixes read: a lone SampleMulti, or a
+        # group over one sample, reads that sample's own; a group over
+        # several reads the pool of its samples side by side, one pool
+        # for every group over the same samples (keyed by their sorted
+        # positions, so with the same base offsets). A sample read only
+        # through pools has no buffer of its own
+        self._fused_layout: dict[int, tuple[Any, dict[int, int]]] = {}
         self._fused_ids: dict[int, torch.Tensor] = {}
+        pool_bases: dict[tuple, list[int]] = {}
+        self.group_pool_bytes = 0   # the bytes of the distinct pools
         for c, ms in self.fused_groups.items():
-            poses: list[int] = []
-            for m in ms:
-                p = self.statics[m].sample_pos
-                if p not in poses:
-                    poses.append(p)
-            bases, off = {}, 0
-            for p in poses:
-                bases[p] = off
-                off += int(self.samples_padded[p].shape[1])
-            self._fused_layout[c] = (tuple(poses), bases)
             self._fused_ids[c] = torch.tensor(ms, dtype=torch.long, device=dev)
-            if len(poses) > 1:
-                self.samples_padded[("fused", c)] = torch.cat(
-                    [self.samples_padded[p] for p in poses], dim=1
-                )
+            poses = tuple(sorted({self.statics[m].sample_pos for m in ms}))
+            if len(poses) == 1:
+                self._fused_layout[c] = (poses[0], {poses[0]: 0})
+                continue
+            key = ("fused", poses)
+            if key not in pool_bases:
+                pool, pool_bases[key] = voices.make_padded_pool(
+                    [self.samples[p] for p in poses], bl)
+                self.samples_padded[key] = pool
+                self.group_pool_bytes += _nbytes(pool)
+            self._fused_layout[c] = (key, dict(zip(poses, pool_bases[key])))
+        own = {self.statics[vi].sample_pos for vi in self.order
+               if self.statics[vi].kind == G.SAMPLEMULTI
+               and vi not in self._fused_members}
+        own.update(k for k, _ in self._fused_layout.values()
+                   if isinstance(k, int))
+        for p in sorted(own):
+            self.samples_padded[p] = voices.make_padded_sample(
+                self.samples[p], bl)
 
         # per-vertex gain/angle/wet, indexed by vertex id
         self._gains = torch.tensor(
@@ -872,8 +884,9 @@ class CompiledGraph:
         # replay on CUDA), with the device nodes those replays launched
         # (each program's `nodes`, counted at its capture); the bytes the
         # captures added to the graph's pool; the slots of the windows'
-        # polyphonic instance tables and the voices that filled them
-        # (`_note_fill`, counted at the bake, kept with a chain's window)
+        # polyphonic instance tables and the voices that filled them, and
+        # the same of the fused groups' voice tables (`_table_fill`,
+        # counted at the bake, kept with a chain's window)
         self.served_windows = 0
         self.live_bakes = 0
         self.sharded_windows = 0
@@ -883,6 +896,8 @@ class CompiledGraph:
         self.pool_bytes = 0
         self.note_slots = 0
         self.note_voices = 0
+        self.group_slots = 0
+        self.group_voices = 0
         # per-fused-group pooled event arrays, keyed by FlowwBank version
         self._pool_cache: dict[int, tuple] = {}
         # per-(consumer, member) processed event arrays, keyed by the
@@ -890,6 +905,12 @@ class CompiledGraph:
         self._member_pool_cache: dict[tuple[int, int], tuple] = {}
         # per-consumer sample_len/base vectors (see _fused_member_vecs)
         self._fused_vecs: dict[int, tuple] = {}
+
+    def _add_fill(self, fill: tuple) -> None:
+        self.note_slots += fill[0]
+        self.note_voices += fill[1]
+        self.group_slots += fill[2]
+        self.group_voices += fill[3]
 
     def _scalar(self, v: float) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.float32, device=self.device)
@@ -1006,7 +1027,7 @@ class CompiledGraph:
             # guarantees the live carries equal that state at serve time
             delta = {vi: c for vi, c in nc.items() if c != carries.get(vi)}
             wins.append((ints, floats, layout, delta,
-                         *self._classify_delta(delta), _note_fill(bakes)))
+                         *self._classify_delta(delta), _table_fill(bakes)))
             carries = dict(carries)
             carries.update(nc)
             fb.advance_blocks(nb)
@@ -1106,9 +1127,9 @@ class CompiledGraph:
 
     def _record_window(self, fb: FlowwBank, t0: int, nb: int,
                        ints: np.ndarray, floats: np.ndarray, layout,
-                       new_carries, fill: tuple[int, int]) -> None:
+                       new_carries, fill: tuple) -> None:
         """Record one live-baked window (its packed host buffers, uploaded
-        here if kept, and its `_note_fill`) into the active recording
+        here if kept, and its `_table_fill`) into the active recording
         chain, started with a snapshot of the carries before the window.
         Called before self.carries is updated."""
         if not self._prebake_on or nb < self._REC_MIN_NB:
@@ -1368,16 +1389,16 @@ class CompiledGraph:
             else:
                 with span("window.bake"):
                     self._reset_chain_expects()
-                    bakes, new_carries = self._bake_all(fb, t0, nb)
+                    bakes, new_carries = self._bake_all(fb, t0, nb,
+                                                        groups_span=True)
                     ints, floats, layout = _pack_bakes(bakes)
-                    fill = _note_fill(bakes)
+                    fill = _table_fill(bakes)
                     self.live_bakes += 1
                     self._record_window(fb, t0, nb, ints, floats, layout,
                                         new_carries, fill)
                     ints = torch.from_numpy(ints)
                     floats = torch.from_numpy(floats)
-            self.note_slots += fill[0]
-            self.note_voices += fill[1]
+            self._add_fill(fill)
             self._pack_fx()
             ttab_len = int(self._time_table(t0 + nb * self.bl).shape[0]) \
                 if self._uses_time else 0
@@ -1483,9 +1504,7 @@ class CompiledGraph:
                        for f, a in tbl.items()}
                 for vkey, tbl in bakes.items()}
         ints, floats, layout = _pack_bakes(mine)
-        slots, voices_ = _note_fill(mine)
-        self.note_slots += slots
-        self.note_voices += voices_
+        self._add_fill(_table_fill(mine))
         ints, floats = torch.from_numpy(ints), torch.from_numpy(floats)
         self._pack_fx()
         ttab_len = int(self._time_table(t0 + nb_total * self.bl).shape[0]) \
@@ -1506,7 +1525,7 @@ class CompiledGraph:
 
     def _bake_all(
         self, fb: FlowwBank, t0: int, nb: int,
-        carries: dict[int, Any] | None = None,
+        carries: dict[int, Any] | None = None, groups_span: bool = False,
     ):
         """Host-side event baking for a window. Each fused group's
         per-vertex voices merge into one COMPACT voice table (only voices
@@ -1514,7 +1533,8 @@ class CompiledGraph:
         to live voices. Table shapes pad to the sticky `bake_caps`
         (raised here on overflow). Under TERMDAW_VOICE_CAP the voice
         tables' `p` is clamped to the cap and overflow steals the oldest
-        voices (reference compile.py:1263-1296)."""
+        voices (reference compile.py:1263-1296). `groups_span`: the
+        groups' bake is a `window.bake.groups` span (a live window's)."""
         carries = self.carries if carries is None else carries
         bakes: dict[str, dict[str, np.ndarray]] = {}
         new_carries: dict[int, Any] = {}
@@ -1536,16 +1556,25 @@ class CompiledGraph:
             new_carries[vi] = nc
             self._record_caps(key, (self.cap_scope, names[vi], st.kind),
                               st.kind, tbl)
-        for consumer, members in self.fused_groups.items():
-            voices_, group_carries = self._bake_fused_group(
-                fb, consumer, members, t0, t1, carries
-            )
-            new_carries.update(group_carries)
-            tbl = self._merge_group(voices_, consumer, members, t0, nb)
-            bakes[f"fused{consumer}"] = tbl
-            self._record_caps(f"fused{consumer}",
-                              (self.cap_scope, names[consumer], "fused"),
-                              "fused", tbl)
+        if not self.fused_groups:
+            return bakes, new_carries
+        groups = (span("window.bake.groups") if groups_span
+                  else contextlib.nullcontext())
+        with groups as sp:
+            for consumer, members in self.fused_groups.items():
+                voices_, group_carries = self._bake_fused_group(
+                    fb, consumer, members, t0, t1, carries
+                )
+                new_carries.update(group_carries)
+                tbl = self._merge_group(voices_, consumer, members, t0, nb)
+                bakes[f"fused{consumer}"] = tbl
+                self._record_caps(f"fused{consumer}",
+                                  (self.cap_scope, names[consumer], "fused"),
+                                  "fused", tbl)
+            if sp is not None:
+                sp.attr("groups", len(self.fused_groups))
+                sp.attr("members", len(self._fused_members))
+                sp.attr("voices", _table_fill(bakes)[3])
         return bakes, new_carries
 
     def _bake_vertex(self, fb: FlowwBank, st: _VertexStatic, carry,
@@ -1843,11 +1872,8 @@ class CompiledGraph:
     def _fused_mix(self, consumer: int, bakes, nb: int) -> torch.Tensor:
         """One voice-mix call for a whole SampleMulti group: per-vertex
         pan/gain folds into per-voice channel amps; members over different
-        samples read one concatenated padded buffer."""
-        poses, _bases = self._fused_layout[consumer]
-        buf = self.samples_padded[
-            poses[0] if len(poses) == 1 else ("fused", consumer)
-        ]
+        samples read the pool of the group's samples."""
+        buf = self.samples_padded[self._fused_layout[consumer][0]]
         tbl = bakes[f"fused{consumer}"]
         ids = self._fused_ids[consumer]
         amps = mix.post_amps(self._angles[ids], self._gains[ids])  # [V, 2]

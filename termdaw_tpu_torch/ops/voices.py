@@ -32,6 +32,22 @@ def make_padded_sample(sample: torch.Tensor, bl: int) -> torch.Tensor:
     return F.pad(sample.t(), (bl, bl + 256)).contiguous()
 
 
+def make_padded_pool(samples: list[torch.Tensor],
+                     bl: int) -> tuple[torch.Tensor, list[int]]:
+    """[L_i, 2] samples -> (one [2, sum of padded lengths] buffer, each
+    sample's first column in it): the torch.cat of their
+    make_padded_sample buffers, written in place without them."""
+    lens = [2 * bl + int(s.shape[0]) + 256 for s in samples]
+    bases = [0]
+    for n in lens[:-1]:
+        bases.append(bases[-1] + n)
+    pool = torch.zeros((2, sum(lens)), dtype=samples[0].dtype,
+                       device=samples[0].device)
+    for s, b in zip(samples, bases):
+        pool[:, b + bl:b + bl + s.shape[0]] = s.t()
+    return pool, bases
+
+
 def compute_begin_vel(
     bake: dict, t0: int, nb: int, bl: int, sample_len: int
 ) -> tuple[torch.Tensor, torch.Tensor]:

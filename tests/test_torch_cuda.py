@@ -127,6 +127,31 @@ def test_kernel_at_c7_width_matches_plain_on_card(cuda, size):
     _mix_on_card(args, nb, bl)
 
 
+def test_kernel_streams_a_piano_pool_on_card(cuda, tmp_path):
+    """c10's shape: a pool of 80 M frames (the sampled-piano session's
+    shared library is 84.5 M) mixed at 192 slots a block over a 375-block
+    window, streamed from global memory, bit-exact to the plain version;
+    c4's snare, a lone SampleMulti, stays in shared memory."""
+    nb, bl, P = 375, 1024, 192
+    lpad = 80_000_000 + 2 * bl + 256
+    g = torch.Generator(device=cuda).manual_seed(10)
+    padded = torch.rand((2, lpad), generator=g, device=cuda) * 2 - 1
+    begins = torch.randint(0, lpad - 2 * bl - 256 + bl + 1, (nb, P),
+                           generator=g, device=cuda, dtype=torch.int32)
+    begins[0, 0], begins[-1, -1] = 0, lpad - bl - 256
+    al, ar = (torch.rand((nb, P), generator=g, device=cuda) * 2 - 1
+              for _ in range(2))
+    plan = kernels.voice_mix_plan(lpad, nb, bl)
+    assert not plan.resident and plan.smem == 0
+    _mix_on_card((padded, begins, al, ar), nb, bl)
+    del padded
+    write_c4_project(tmp_path, 4.0, 48000, 1024)
+    cg = load_state(tmp_path, cuda).compiled
+    assert not cg.fused_groups and cg.group_pool_bytes == 0
+    (buf,) = cg.samples_padded.values()
+    assert kernels.voice_mix_plan(buf.shape[1], nb, bl).resident
+
+
 def test_small_c5_render_on_card_matches_cpu(cuda, tmp_path):
     packets = write_c5_project(tmp_path, 2.0, 8000, 256, n_tracks=8,
                                hit_sr=16000, bd=16)
