@@ -16,10 +16,11 @@ phase 12 gates those of a replayed c4 render against its device rows.
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
 2. build: compiles every kernel (csrc/voice_mix.cu, affine_scan.cu,
    max_decay_scan.cu, complex_scan.cu, biquad_seq.cu, sampsyn.cu, eq3.cu,
-   synth.cu) with nvcc for
+   synth.cu, vertex_post.cu) with nvcc for
    sm_90a, one nvcc process each, all in parallel, and prints each
    compiled kernel's registers, shared memory and spills (ptxas); the
-   exact lane's SASS (cuobjdump) must hold no FFMA;
+   exact lane's and the vertex epilogue's SASS (cuobjdump) must hold no
+   FFMA;
 3. the voice-mix kernel against its plain PyTorch version on the card at
    the c5 render's shapes (375 blocks of 1024 frames, 16 slots), in both
    regimes of kernels.voice_mix_plan: a two-sample concat buffer staged
@@ -292,6 +293,17 @@ phase 12 gates those of a replayed c4 render against its device rows.
    eager warm-up and the capture, adds 16 to `synth_launches` (every
    program captured 16 synth launches, one a Synth arm), and so does an
    eager window; the median of 5 render_device walls.
+29. the vertex epilogue's kernel (csrc/vertex_post.cu, mix.vertex_post)
+   at c8's window ([384,000, 2]): blending an effect (wet 0.5) with a pan
+   and a gain, and a pan and a gain alone, each bit-equal to the plain
+   composition (the wet blend and mix.post) on the card; its device ms
+   (20 calls captured in a CUDA graph, replayed between CUDA events)
+   beside its bound (y, and x where it blends, read and the output
+   written once, at 3.35 TB/s) and the plain composition's ms (captured
+   the same way). Then c8 on the card with the plain epilogue's ops made
+   to raise: each of its programs captured one launch for each vertex
+   with something to do (`posts`, at most 356), the wrapper counted the
+   warm-ups and captures; its programs' nodes.
 
 Then the card line, the kernels line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -748,9 +760,11 @@ def profile_render(st) -> dict:
                         ("max_decay_scan", "MaxDecayScanOp"),
                         ("eq3", "Eq3Stage"),
                         ("sampsyn", "sampsyn_kernel"),
-                        ("synth", "synth_kernel")):
+                        ("synth", "synth_kernel"),
+                        ("vertex_post", "vertex_post_kernel")):
             ks = [e for e in dev if name in e.name]
-            calls = [e for e in ks if k in ("voice_mix", "sampsyn", "synth")
+            calls = [e for e in ks if k in ("voice_mix", "sampsyn", "synth",
+                                            "vertex_post")
                      or "tile_scan" in e.name]
             mine[k] = {"ms": ms(ks), "device_kernels": len(ks),
                        "device_calls": len(calls) // (4 if k == "eq3"
@@ -2133,6 +2147,98 @@ def synth_phase(fixtures, tmp: Path, cuda, reset_counts) -> dict:
     return out
 
 
+# phase 29: the vertex epilogue at c8's window, blending an effect (wet
+# 0.5) with a pan and a gain, and a pan and a gain alone (c8's send Sums
+# gain only, its last inserts blend, pan and gain); c8's vertices a window
+POST_T = 384000
+POST_PLANS = {"blend": (0.5, 30.0, 0.6), "pan_gain": (None, -20.0, 0.8)}
+C8_VERTICES = 356
+
+
+def post_phase(fixtures, tmp: Path, cuda, reset_counts) -> dict:
+    """Phase 29: mix.vertex_post at [POST_T, 2] for each of POST_PLANS
+    against the plain composition on the card, bit for bit, timed beside
+    its bound and the plain composition; then c8's window programs with
+    the plain epilogue's ops refused: the launches each captured."""
+    from benchmark.projects import mix_session
+    from termdaw_tpu_torch.ops import mix
+
+    gen = np.random.default_rng(29)
+    y, x = (torch.from_numpy(gen.normal(size=(POST_T, 2)).astype(np.float32))
+            .to(cuda) for _ in range(2))
+    out: dict = {"T": POST_T, "kernel": {}}
+    for name, (wet, angle, gain) in POST_PLANS.items():
+        a = torch.tensor(np.float32(angle), device=cuda)
+        pan_on, gain_on = mix.post_flags(angle, gain)
+        plan = mix.VertexPost(
+            blend=wet is not None, pan_on=bool(pan_on), gain_on=bool(gain_on),
+            wet=torch.tensor(np.float32(wet or 0.0), device=cuda), angle=a,
+            gain=torch.tensor(np.float32(gain), device=cuda),
+            pan=mix.pan_amps(a))
+        xb = x if plan.blend else None
+
+        def plain():
+            v = x + plan.wet * (y - x) if plan.blend else y
+            return mix.post(v, plan.angle, plan.gain)
+
+        n0 = mix.post_launches
+        got = mix.vertex_post(y, xb, plan)
+        torch.cuda.synchronize()
+        check(mix.post_launches == n0 + 1, "vertex_post: no launch counted")
+        check(torch.equal(got, plain()),
+              f"vertex_post ({name}) differs from the plain composition: "
+              f"max |diff| {float((got - plain()).abs().max())}")
+        ms = graph_ms(lambda: mix.vertex_post(y, xb, plan))
+        b = bound(mix.vertex_post_work(y, xb, plan))
+        out["kernel"][name] = dict(
+            wet=wet, angle=angle, gain=gain, kernel_vs_plain=0.0, ms=ms,
+            call_ms=event_ms(lambda: mix.vertex_post(y, xb, plan), 50),
+            plain_ms=graph_ms(plain), plain_call_ms=event_ms(plain, 20),
+            **b, bound_share=b["bound_ms"] / ms)
+
+    # c8's window programs: one launch a vertex with something to do, and
+    # none of the plain epilogue's ops
+    cfg = json.loads((ROOT / "benchmark" / "configs" / "c8_mix64.json")
+                     .read_text())
+    d8 = tmp / "c8_post"
+    mix_session.build(cfg, 29, d8)
+    st8 = fixtures.load_state(d8, cuda)
+    cg = st8.compiled
+    posts = sum(p.launches for vi, p in cg._posts.items()
+                if vi not in cg._fused_members)
+
+    def refused(*args, **kwargs):
+        raise RuntimeError("the plain epilogue ran in a window program")
+
+    names = ("post", "apply_angle", "apply_gain", "pan_amps", "post_amps")
+    kept = {n: getattr(mix, n) for n in names}
+    reset_counts()
+    try:
+        for n in names:
+            setattr(mix, n, refused)
+        st8.render()
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in kept.items():
+            setattr(mix, n, fn)
+    progs = cg.programs()
+    replays = check_replays(st8, "c8")
+    check(0 < posts <= C8_VERTICES == len(cg.order),
+          f"c8: {posts} epilogue launches of {len(cg.order)} vertices")
+    for p in progs:
+        check(p.posts == posts == p.kernels.get("vertex_post"),
+              f"a c8 program captured {p.kernels}, posts {p.posts}, for "
+              f"{posts} vertices with an epilogue")
+    check(mix.post_launches == 2 * posts * len(progs),
+          f"c8: {mix.post_launches} epilogue launches over {len(progs)} "
+          f"programs' warm-ups and captures")
+    out["c8"] = {"vertices": len(cg.order), "posts": posts,
+                 "programs": len(progs),
+                 "wrapper_launches": mix.post_launches,
+                 "nodes": [p.nodes for p in progs], **replays}
+    return out
+
+
 def main() -> int:
     # 1. environment
     if not torch.cuda.is_available():
@@ -2158,6 +2264,7 @@ def main() -> int:
     from termdaw_tpu_torch.engine.player import Player
     from termdaw_tpu_torch.graph import compile as gcompile
     from termdaw_tpu_torch.ops import filters, fx, scan, synthv, voices
+    from termdaw_tpu_torch.ops import mix as mix_ops
     from termdaw_tpu_torch.ops.adsr import AdsrConf
     from termdaw_tpu_torch.utils import fixtures
 
@@ -2168,6 +2275,7 @@ def main() -> int:
         scan.max_decay_launches = scan.complex_launches = 0
         filters.biquad_seq_launches = synthv.sampsyn_launches = 0
         fx.eq3_launches = synthv.synth_launches = 0
+        mix_ops.post_launches = 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -2179,20 +2287,23 @@ def main() -> int:
     from termdaw_tpu_torch import native
 
     native.get_lib()
-    # the exact lane rounds every multiply and add on its own: no fused
-    # multiply-add may appear in its machine code
-    sass = subprocess.run(
-        [str(Path(kernels.find_nvcc()).parent / "cuobjdump"), "-sass",
-         str(libs["biquad_seq"])], capture_output=True, text=True,
-        timeout=120)
-    check(sass.returncode == 0 and "FMUL" in sass.stdout,
-          f"cuobjdump -sass of biquad_seq failed: {sass.stderr.strip()}")
-    ffma = len(re.findall(r"\bFFMA", sass.stdout))
-    check(ffma == 0, f"biquad_seq's SASS holds {ffma} FFMA")
+    # the exact lane and the vertex epilogue round every multiply and add
+    # on its own: no fused multiply-add may appear in their machine code
+    ffmas = {}
+    for name in ("biquad_seq", "vertex_post"):
+        sass = subprocess.run(
+            [str(Path(kernels.find_nvcc()).parent / "cuobjdump"), "-sass",
+             str(libs[name])], capture_output=True, text=True, timeout=120)
+        check(sass.returncode == 0 and "FMUL" in sass.stdout,
+              f"cuobjdump -sass of {name} failed: {sass.stderr.strip()}")
+        ffmas[name] = len(re.findall(r"\bFFMA", sass.stdout))
+        check(ffmas[name] == 0, f"{name}'s SASS holds {ffmas[name]} FFMA")
     emit("build", seconds=time.perf_counter() - t0, ptxas={
         f"termdaw_tpu_torch/csrc/{name}.cu": ptxas_summary(
             lib.with_suffix(".log").read_text())
-        for name, lib in libs.items()}, biquad_seq_sass_ffma=ffma)
+        for name, lib in libs.items()},
+        biquad_seq_sass_ffma=ffmas["biquad_seq"],
+        vertex_post_sass_ffma=ffmas["vertex_post"])
 
     # 3. kernel vs plain at c5's shapes, in both regimes
     args = kernel_inputs(cuda)
@@ -3012,6 +3123,14 @@ def main() -> int:
         emit("synth_kernel", card=card, seconds=time.perf_counter() - t28,
              **syn_res)
 
+        # 29. the vertex epilogue's kernel at c8's window, and c8's window
+        # programs with the plain epilogue's ops refused
+        t29 = time.perf_counter()
+        post_res = post_phase(fixtures, tmp, cuda, reset_counts)
+        per_kernel["vertex_post"] = post_res["kernel"]["blend"]
+        emit("vertex_post_kernel", card=card,
+             seconds=time.perf_counter() - t29, **post_res)
+
     print(card, flush=True)
     # launches: what each kernel's main-path render ran on the card (its
     # programs' replays and warm-ups, path_launches): c5's for the voice
@@ -3045,6 +3164,13 @@ def main() -> int:
         # c9's window
         ("synth", "synth", "termdaw_tpu/ops/synthv.py synth (XLA)",
          c4_counts["synth"], syn_err),
+        # no Pallas kernel: the reference's epilogue is jnp that XLA
+        # fuses; c4's windows; bit-equal to the plain composition, its
+        # time phase 29's at c8's window, blending
+        ("vertex_post", "vertex_post",
+         "termdaw_tpu/ops/mix.py:54 post and the wet blend at "
+         "termdaw_tpu/graph/compile.py:1762-1778 (XLA)",
+         c4_counts["vertex_post"], 0.0),
         # the voice mix at the wide configs' shapes (phase 24): c6's and
         # c7's renders, their first window's arguments
         *((f"voice_mix_stereo@{cfg}", "voice_mix",
@@ -3064,7 +3190,7 @@ def main() -> int:
         "bound_by": per_kernel[name]["bound_by"],
         # no single PyTorch call computes a first-order recurrence, a
         # max-decay scan, the voice mix, a biquad, the SampSyn or Synth
-        # arm or the eq3's crossover tree
+        # arm, the eq3's crossover tree or the vertex epilogue
         "library_ms": None,
     } for name, src, replaces, n, err in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,10 @@ instead of as a jitted XLA program:
   coefficients) from build, and its wet gate from the host: with wet <
   1e-4 the input passes and the `.fx` state is left as it was, without
   running the effect (the reference's `jnp.where` leaf by leaf gives the
-  same values);
+  same values). Every vertex ends in its epilogue, the effect's wet blend,
+  pan and gain, as one `mix.vertex_post` whose flags and pan factors are
+  resolved at build (`_posts`); a vertex with none of the three keeps its
+  arm's output as its buffer;
 * the window-program cache (reference compile.py:124-175, 1197-1225,
   1584-1604): a bounded LRU `_PROGRAM_CACHE` of `_WindowProgram`s, capped
   by TERMDAW_PROGRAM_CACHE (max(8, int(env or 128)), read at import),
@@ -94,7 +97,8 @@ Fused groups (every SampleMulti whose only consumer is the same vertex,
 two or more per consumer) are formed on every device, so the CPU path
 bakes the same tables as the card. A group mixes in one
 `ops.voices.voice_mix_stereo` call, with each member's pan/gain folded
-into its voices' amps; a lone SampleMulti makes the same call with equal
+into its voices' amps (the members' amps resolved at build,
+`_fused_amps`); a lone SampleMulti makes the same call with equal
 channel amps (compile.py:1709-1723 on the TPU).
 """
 
@@ -166,7 +170,7 @@ def _kernel_counts() -> dict[str, int]:
             "complex_scan": scan.complex_launches,
             "biquad_seq": filters.biquad_seq_launches,
             "sampsyn": synthv.sampsyn_launches, "eq3": fx.eq3_launches,
-            "synth": synthv.synth_launches}
+            "synth": synthv.synth_launches, "vertex_post": mix.post_launches}
 
 
 _CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
@@ -256,10 +260,12 @@ class _WindowProgram:
         self.warmup_ms = self.capture_ms = 0.0
         self.pool_bytes = 0  # what its capture added to the graph's pool
         self.kernels: dict[str, int] = {}  # kernel launches captured
-        # what one replay launches (the captured graph's nodes) and the
-        # vertex arms it holds, read at capture
+        # what one replay launches (the captured graph's nodes), the
+        # vertex arms it holds and those of its vertices whose epilogue
+        # launches (mix.vertex_post), read at capture
         self.nodes = 0
         self.arms: dict[str, int] = {}
+        self.posts = 0
 
         ints, floats, t0 = self.ints, self.floats, self.t0
 
@@ -285,7 +291,8 @@ class _WindowProgram:
         card's capture stream and switch the collector, so they never
         overlap. The captured graph's `nodes` (read from the graph once)
         and `arms` are recorded here, and
-        TERMDAW_TIMING prints them; no replay counts anything."""
+        TERMDAW_TIMING prints them, with `posts`, the epilogue launches
+        it captured; no replay counts anything."""
         from .. import kernels
 
         kernels.load_all(dev)  # nothing may be built or loaded in capture
@@ -349,10 +356,12 @@ class _WindowProgram:
         cg.pool_bytes += self.pool_bytes
         self.graph, self.out = graph, out
         self.arms = _arms(cg)
+        self.posts = self.kernels.get("vertex_post", 0)
         if prof.TIMING:
             print(f"{DEFAULT}timing: window.capture = {BLUE}"
                   f"{self.capture_ms:.1f} ms{DEFAULT}, {BLUE}{self.nodes}"
-                  f"{DEFAULT} nodes, arms {self.arms}")
+                  f"{DEFAULT} nodes, {BLUE}{self.posts}{DEFAULT} posts, "
+                  f"arms {self.arms}")
 
     def __call__(self) -> torch.Tensor:
         mesh = self.mesh
@@ -366,6 +375,7 @@ class _WindowProgram:
                 with _PROGRAM_LOCK, span("window.capture") as sp:
                     self._capture(self.ints.device)
                     sp.attr("nodes", self.nodes)
+                    sp.attr("posts", self.posts)
                     sp.attr("arms", self.arms)
             self.graph.replay()
             if mesh is not None:
@@ -807,15 +817,28 @@ class CompiledGraph:
                 self.samples[p], bl)
 
         # per-vertex gain/angle/wet, indexed by vertex id
-        self._gains = torch.tensor(
-            [v.gain for v in graph.vertices], dtype=torch.float32, device=dev
-        )
-        self._angles = torch.tensor(
-            [v.angle for v in graph.vertices], dtype=torch.float32, device=dev
-        )
+        gains = np.asarray([v.gain for v in graph.vertices], np.float32)
+        angles = np.asarray([v.angle for v in graph.vertices], np.float32)
+        self._gains = torch.from_numpy(gains).to(dev)
+        self._angles = torch.from_numpy(angles).to(dev)
         self._wets = torch.tensor(
             [v.wet for v in graph.vertices], dtype=torch.float32, device=dev
         )
+        # each vertex's epilogue (mix.vertex_post), resolved once: the pan
+        # factors of every angle in one call, the flags on the host from
+        # the same f32 values; and each fused group's per-member amps
+        pans = mix.pan_amps(self._angles)
+        pan_on, gain_on = mix.post_flags(angles, gains)
+        self._posts = {
+            vi: mix.VertexPost(
+                blend=st.kind == G.PLUGINFX and not st.fx_skip,
+                pan_on=bool(pan_on[vi]), gain_on=bool(gain_on[vi]),
+                wet=self._wets[vi], angle=self._angles[vi],
+                gain=self._gains[vi], pan=pans[vi])
+            for vi, st in self.statics.items()}
+        self._fused_amps = {
+            c: mix.post_amps(self._angles[ids], self._gains[ids])
+            for c, ids in self._fused_ids.items()}
 
         # leads the program-cache key in place of the reference's spec
         # (compile.py:429-439): the programs read this graph's tensors, so
@@ -1875,8 +1898,7 @@ class CompiledGraph:
         samples read the pool of the group's samples."""
         buf = self.samples_padded[self._fused_layout[consumer][0]]
         tbl = bakes[f"fused{consumer}"]
-        ids = self._fused_ids[consumer]
-        amps = mix.post_amps(self._angles[ids], self._gains[ids])  # [V, 2]
+        amps = self._fused_amps[consumer]  # [members, 2]
         member = tbl["member"].long()
         return voices.voice_mix_stereo(
             buf,
@@ -1983,13 +2005,18 @@ class CompiledGraph:
                 )
             elif st.fx_skip:  # G.PLUGINFX with wet < 1e-4
                 out = x  # the input passes, the state stays as it was
-            else:  # G.PLUGINFX
-                y, ns[f"{vi}.fx"] = fx.EFFECTS[st.fx_kind].process(
+            else:  # G.PLUGINFX: vertex_post blends its output with x
+                out, ns[f"{vi}.fx"] = fx.EFFECTS[st.fx_kind].process(
                     x, ns[f"{vi}.fx"], fx_params.get(key, {}), self.sr,
                     self._fx_static[vi], mesh,
                 )
-                out = x + self._wets[vi] * (y - x)
-            bufs[vi] = mix.post(out, self._angles[vi], self._gains[vi])
+            # the wet blend, pan and gain; with none of them to do, the
+            # vertex's buffer is its arm's output (no op writes a buffer
+            # in place)
+            plan = self._posts[vi]
+            bufs[vi] = mix.vertex_post(
+                out, x if plan.blend else None, plan) if plan.launches \
+                else out
         self._vertex_at = (None, "the state write-back")
         if write_state:
             pairs: list = []

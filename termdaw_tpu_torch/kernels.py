@@ -17,7 +17,9 @@ envelope's and the table's constants as a `SampSynParams`, the Synth arm
 (synth.cu) its oscillators', envelopes' and sine's as a `SynthParams`
 (both share csrc/note_env.cuh's envelope); the eq3's
 crossover tree (eq3.cu, four stages of the tiled scan) takes its run
-length from `scan_plan(T, 4, "eq3")` and its scratch from `eq3_launch`.
+length from `scan_plan(T, 4, "eq3")` and its scratch from `eq3_launch`;
+the vertex epilogue (vertex_post.cu) takes its pan factors, wet and gain
+as device pointers and its three flags as ints.
 
 nvcc is looked up in `$CUDA_HOME/bin`, then `/usr/local/cuda/bin`, then
 `PATH`.
@@ -46,7 +48,7 @@ NVCC_FLAGS = (
 
 # every csrc/<name>.cu of the port
 KERNELS = ("voice_mix", "affine_scan", "max_decay_scan", "complex_scan",
-           "biquad_seq", "sampsyn", "eq3", "synth")
+           "biquad_seq", "sampsyn", "eq3", "synth", "vertex_post")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -214,6 +216,12 @@ def eq3_lib() -> ctypes.CDLL:
     vp = ctypes.c_void_p
     return _load("eq3", "eq3_launch",
                  [vp] * 15 + [ctypes.c_longlong, ctypes.c_int, vp])
+
+
+def vertex_post_lib() -> ctypes.CDLL:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return _load("vertex_post", "vertex_post_launch",
+                 [vp] * 5 + [ci] * 3 + [ctypes.c_longlong, vp, vp])
 
 
 def load_all(device: torch.device) -> None:
@@ -492,3 +500,23 @@ def eq3_launch(x: torch.Tensor, sections: torch.Tensor, states: tuple,
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"eq3 kernel launch failed: CUDA error {rc}")
+
+
+def vertex_post_launch(y: torch.Tensor, x: torch.Tensor | None,
+                       pan: torch.Tensor, wet: torch.Tensor,
+                       gain: torch.Tensor, blend: bool, pan_on: bool,
+                       gain_on: bool, out: torch.Tensor) -> None:
+    """Launch csrc/vertex_post.cu on the tensors' device and current
+    stream: y, x (None where it does not blend) and out [T, 2], pan [2],
+    wet and gain 0-d, all float32, y, x and out contiguous. The caller
+    (ops/mix.vertex_post) has checked them; raises if the launch is
+    refused."""
+    fn = vertex_post_lib().vertex_post_launch
+    with torch.cuda.device(out.device):
+        rc = fn(y.data_ptr(), None if x is None else x.data_ptr(),
+                pan.data_ptr(), wet.data_ptr(), gain.data_ptr(), int(blend),
+                int(pan_on), int(gain_on), y.shape[0], out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"vertex_post kernel launch failed: CUDA error "
+                           f"{rc}")

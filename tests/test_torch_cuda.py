@@ -1,7 +1,7 @@
 """The port on a CUDA card: the voice-mix, affine-scan, max-decay,
-complex-scan, exact-biquad, SampSyn, Synth and eq3 kernels against their
-plain versions (the SampSyn and Synth kernels also replayed from a CUDA
-graph), the
+complex-scan, exact-biquad, SampSyn, Synth, eq3 and vertex-epilogue
+kernels against their plain versions (the SampSyn, Synth and epilogue
+kernels also replayed from a CUDA graph), the
 effects, small renders (the exact lane's, a chain-served one and a 24-bit
 one with the native host library on and off among them), playback on
 the card against the port's CPU path, and sharded windows replayed from
@@ -24,7 +24,7 @@ from termdaw_tpu_torch import kernels, native
 from termdaw_tpu_torch.engine.player import Player
 from termdaw_tpu_torch.engine.sink import Sink
 from termdaw_tpu_torch.fileio.wav import read_wav
-from termdaw_tpu_torch.ops import filters, fx, scan, synthv, voices
+from termdaw_tpu_torch.ops import filters, fx, mix, scan, synthv, voices
 from termdaw_tpu_torch.parallel.mesh import gather
 from termdaw_tpu_torch.tools import shard_render
 from termdaw_tpu_torch.ops.adsr import AdsrConf, hit_conf
@@ -34,6 +34,7 @@ from termdaw_tpu_torch.utils.fixtures import (
     write_c5_project,
 )
 from benchmark.projects.mix_session import EQ_HIGH, EQ_LOW
+from tests.mix_project import post_plan, write_mix_project
 
 pytestmark = pytest.mark.cuda
 
@@ -1498,3 +1499,145 @@ def test_sharded_windows_replay_with_nccl_inside_on_card(cuda, tmp_path):
                for p in r["programs"])
     assert r["replays"] == r["sharded_windows"] == 3 * len(windows)
     assert r["pool_mb"] > 0
+
+
+# -- the vertex epilogue (csrc/vertex_post.cu, mix.vertex_post) -----------
+
+# the skip thresholds' edges on both sides, and a pan and a gain well on
+_POST_ANGLES = [0.0, 30.0, 0.0009, -0.0009, 0.0011, -0.0011]
+_POST_GAINS = [1.0, 0.6, 1.0009, 1.0011, 0.9991, 0.9989]
+
+
+def _post_inputs(dev, T: int, seed: int, offset: int = 0):
+    """y and x [T, 2], each `offset` floats into its own storage."""
+    rng = np.random.default_rng(seed)
+    return tuple(
+        torch.from_numpy(rng.normal(size=offset + 2 * T).astype(np.float32))
+        .to(dev)[offset:].view(T, 2) for _ in range(2))
+
+
+def _plain_post(y, x, plan):
+    v = x + plan.wet * (y - x) if plan.blend else y
+    return mix.post(v, plan.angle, plan.gain)
+
+
+@pytest.mark.parametrize("gain", _POST_GAINS)
+@pytest.mark.parametrize("angle", _POST_ANGLES)
+@pytest.mark.parametrize("wet", [None, 0.5, 1.0])
+@pytest.mark.parametrize("T", [384000, 1023])
+def test_vertex_post_kernel_bit_equal_to_plain_on_card(cuda, T, wet, angle,
+                                                       gain):
+    """Every flag combination at c8's window and a ragged T, the
+    thresholds' edges included: one launch, counted, bit for bit the
+    plain composition on the card; a plan with no flag on raises."""
+    plan = post_plan(cuda, wet, angle, gain)
+    y, x = _post_inputs(cuda, T, T)
+    n0 = mix.post_launches
+    if not plan.launches:
+        with pytest.raises(ValueError, match="no flag"):
+            mix.vertex_post(y, None, plan)
+        assert mix.post_launches == n0
+        return
+    got = mix.vertex_post(y, x if plan.blend else None, plan)
+    torch.cuda.synchronize()
+    assert mix.post_launches == n0 + 1
+    assert got.shape == (T, 2)
+    assert torch.equal(got, _plain_post(y, x, plan))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+@pytest.mark.parametrize("T", [1023, 1024])
+def test_vertex_post_kernel_on_unaligned_views_on_card(cuda, T, offset):
+    """y and x as views 4 to 16 bytes into their storage (a float at a
+    time where one is not 16-byte aligned), and y aligned with x not:
+    bit for bit the plain composition."""
+    plan = post_plan(cuda, 0.5, 30.0, 0.6)
+    y, x = _post_inputs(cuda, T, 5, offset)
+    assert (y.data_ptr() % 16 == 0) == (offset == 4)
+    for a, b in ((y, x), (y.clone(), x)):
+        got = mix.vertex_post(a, b, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, _plain_post(a, b, plan))
+
+
+def test_vertex_post_kernel_replays_in_a_cuda_graph_on_card(cuda):
+    """Captured in a CUDA graph, the kernel reads y and x at replay: a
+    replay equals the eager call, and again after new inputs are copied
+    in; the capture counts one launch, a replay none."""
+    plan = post_plan(cuda, 0.5, -40.0, 0.8)
+    y, x = (t.clone() for t in _post_inputs(cuda, 384000, 1))
+    y2, x2 = _post_inputs(cuda, 384000, 2)
+    eager = [mix.vertex_post(a, b, plan) for a, b in ((y, x), (y2, x2))]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    n0 = mix.post_launches
+    with torch.cuda.graph(graph):
+        out = mix.vertex_post(y, x, plan)
+    assert mix.post_launches == n0 + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager[0])
+    y.copy_(y2)
+    x.copy_(x2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager[1])
+    assert mix.post_launches == n0 + 1
+
+
+def test_epilogue_factors_resolved_at_build_on_card(cuda):
+    """One pan_amps call over many angles gives each angle's own call's
+    bits on the card, and one post_amps call over a group each member's."""
+    rng = np.random.default_rng(12)
+    angles = np.concatenate([rng.uniform(-180, 180, 500), _POST_ANGLES,
+                             [90.0, -90.0]]).astype(np.float32)
+    gains = np.resize(np.asarray(_POST_GAINS, np.float32), angles.shape)
+    a = torch.from_numpy(angles).to(cuda)
+    g = torch.from_numpy(gains).to(cuda)
+    assert torch.equal(mix.pan_amps(a), torch.stack(
+        [mix.pan_amps(a[i]) for i in range(len(angles))]))
+    assert torch.equal(mix.post_amps(a, g), torch.stack(
+        [mix.post_amps(a[i], g[i]) for i in range(len(angles))]))
+
+
+def test_mix_render_runs_the_epilogue_kernel_on_card(cuda, tmp_path,
+                                                     monkeypatch):
+    """A small mix session on the card with the plain epilogue's ops made
+    to raise: none runs in a window program. Each captured program holds
+    one vertex_post launch for each vertex with something to do (its
+    `posts`, also on the window.capture span), the wrapper counts the
+    warm-ups and captures; the WAV within one count of the CPU's."""
+    import time
+
+    from termdaw_tpu_torch.utils import prof
+
+    write_mix_project(tmp_path, bd=16)
+    st = load_state(tmp_path, cuda)
+    cg = st.compiled
+    want_posts = sum(p.launches for vi, p in cg._posts.items()
+                     if vi not in cg._fused_members)
+    assert 0 < want_posts < len(cg._posts)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the plain epilogue ran in a window program")
+
+    for name in ("post", "apply_angle", "apply_gain", "pan_amps",
+                 "post_amps"):
+        monkeypatch.setattr(mix, name, refused)
+    n0 = mix.post_launches
+    t0 = time.perf_counter()
+    with prof.recording():
+        st.render()
+    monkeypatch.undo()
+    progs = cg.programs()
+    assert progs and all(p.posts == want_posts ==
+                         p.kernels["vertex_post"] for p in progs)
+    assert mix.post_launches - n0 == 2 * want_posts * len(progs)
+    caps = [r for r in prof.records()
+            if r.name == "window.capture" and r.t0 >= t0]
+    assert [r.attrs["posts"] for r in caps] == [want_posts] * len(progs)
+    got, _ = read_wav_ints(tmp_path / "outp.wav")
+    load_state(tmp_path, torch.device("cpu")).render()
+    want, _ = read_wav_ints(tmp_path / "outp.wav")
+    assert np.abs(want).max() > 16000
+    assert np.abs(got - want).max() <= 1

@@ -1,6 +1,9 @@
 """The port's tensor ops (termdaw_tpu_torch/ops/) against the reference's
 on the same numpy inputs. The JAX side runs on the CPU as tests/test_ops.py
-runs it."""
+runs it. Also the vertex epilogue (mix.vertex_post) on the CPU: its
+host-side flags against the torch decision, its plain composition, what a
+graph resolves at build, and renders with the epilogue-free vertices
+keeping their arm's output against the plain program."""
 
 import numpy as np
 import pytest
@@ -14,9 +17,17 @@ from termdaw_tpu.ops import quantize as rquant
 from termdaw_tpu.ops import resample as rres
 from termdaw_tpu.ops import sampler as rsampler
 
+from termdaw_tpu_torch.graph import graph as G
 from termdaw_tpu_torch.ops import mix, quantize, resample, sampler
+from termdaw_tpu_torch.utils.fixtures import (
+    load_state, read_wav_ints, write_c4_project, write_c5_project,
+)
+
+from tests.mix_project import post_plan, write_mix_project
 
 torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
 
 
 def _t(a):
@@ -91,6 +102,165 @@ def test_post_amps_vectorized_matches_scalar_calls():
                         for a, g in zip(angles, gains)])
     assert vec.shape == (8, 2)
     np.testing.assert_array_equal(vec.numpy(), each.numpy())
+
+
+def _ulps(v, k: int = 4) -> list:
+    """v and its k f32 neighbours on each side."""
+    out, lo, hi = [np.float32(v)], np.float32(v), np.float32(v)
+    for _ in range(k):
+        lo, hi = np.nextafter(lo, np.float32(-np.inf)), np.nextafter(
+            hi, np.float32(np.inf))
+        out += [lo, hi]
+    return out
+
+
+# the skip thresholds' edges, every f32 within 4 ulps of them, and a wide
+# spread
+_ANGLES = {
+    "edges": [0.0, -0.0, 0.0009, -0.0009, 0.0011, -0.0011, 0.001, -0.001,
+              1e-30, 45.0, -90.0, 90.0, 180.0],
+    "ulps": _ulps(0.001) + _ulps(-0.001),
+    "wide": list(np.random.default_rng(8).uniform(-180, 180, 64)),
+}
+_GAINS = {
+    "edges": [1.0, 1.0009, 1.0011, 0.9991, 0.9989, 1.001, 0.999, 0.0, 2.0,
+              -1.0, 0.5],
+    "ulps": _ulps(1.001) + _ulps(0.999) + _ulps(1.0),
+    "wide": list(np.random.default_rng(9).uniform(0.0, 2.0, 64)),
+}
+
+
+@pytest.mark.parametrize("what", ["angle", "gain"])
+@pytest.mark.parametrize("sweep", sorted(_ANGLES))
+def test_post_flags_match_the_torch_where(what, sweep):
+    """mix.post_flags, decided on the host in numpy float32, is on exactly
+    where apply_angle / apply_gain change their input (their torch.where
+    does not select it)."""
+    x = _t(np.random.default_rng(10).uniform(0.25, 1.0, (8, 2))
+           .astype(np.float32))
+    values = (_ANGLES if what == "angle" else _GAINS)[sweep]
+    for v in values:
+        t = torch.tensor(np.float32(v))
+        if what == "angle":
+            on = mix.post_flags(v, 1.0)[0]
+            changed = not torch.equal(mix.apply_angle(x, t), x)
+        else:
+            on = mix.post_flags(0.0, v)[1]
+            changed = not torch.equal(mix.apply_gain(x, t), x)
+        assert bool(on) == changed, f"{what} {float(v)!r}"
+    a = np.asarray(values, np.float32)
+    on = mix.post_flags(a, a)[0 if what == "angle" else 1]
+    assert on.shape == a.shape  # elementwise over an array
+
+
+@pytest.mark.parametrize("gain", [1.0, 0.6])
+@pytest.mark.parametrize("angle", [0.0, 30.0])
+@pytest.mark.parametrize("wet", [None, 0.5, 1.0])
+def test_vertex_post_on_cpu_is_the_plain_composition(wet, angle, gain):
+    """Bit for bit post(x + w*(y - x), angle, gain), or post(y, ...) where
+    it does not blend; a plan with no flag on raises (its vertex keeps
+    its input); nothing counts a launch on the CPU."""
+    rng = np.random.default_rng(11)
+    y, x = (_t(rng.normal(size=(1023, 2)).astype(np.float32))
+            for _ in range(2))
+    plan = post_plan(CPU, wet, angle, gain)
+    n0 = mix.post_launches
+    if not plan.launches:
+        with pytest.raises(ValueError, match="no flag"):
+            mix.vertex_post(y, None, plan)
+        return
+    got = mix.vertex_post(y, x if plan.blend else None, plan)
+    v = x + plan.wet * (y - x) if wet is not None else y
+    assert torch.equal(got, mix.post(v, plan.angle, plan.gain))
+    assert mix.post_launches == n0
+    flops, nbytes = mix.vertex_post_work(y, x, plan)
+    assert flops == 2 * 1023 * (3 * plan.blend + plan.pan_on + plan.gain_on)
+    assert nbytes == 4 * 2 * 1023 * (2 + plan.blend)
+
+
+def test_vertex_post_refuses_what_it_cannot_take():
+    y = torch.zeros((16, 2))
+    with pytest.raises(ValueError, match="x must be"):
+        mix.vertex_post(y, None, post_plan(CPU, 0.5, 0.0, 1.0))
+    with pytest.raises(ValueError, match="y must be"):
+        mix.vertex_post(torch.zeros(16), None,
+                        post_plan(CPU, None, 10.0, 1.0))
+    with pytest.raises(TypeError, match="float64"):
+        mix.vertex_post(y.double(), None, post_plan(CPU, None, 10.0, 1.0))
+    with pytest.raises(ValueError, match="pan must be"):
+        mix.vertex_post(y, None, mix.VertexPost(
+            False, True, False, torch.tensor(0.0), torch.tensor(10.0),
+            torch.tensor(1.0), torch.zeros(3)))
+
+
+_PROJECTS = {
+    "mix": write_mix_project,
+    "c4": lambda d: write_c4_project(d, 2.1, 8000, 32, render_sr=8000,
+                                     bd=24),
+    "c5": lambda d: write_c5_project(d, 2.1, 8000, 32, n_tracks=4,
+                                     hit_sr=16000, bd=24),
+}
+
+
+@pytest.mark.parametrize("project", sorted(_PROJECTS))
+def test_epilogue_resolved_at_build(tmp_path, project):
+    """Each vertex's pan factors equal its own pan_amps call, its flags
+    post_flags of its f32 angle and gain, it blends exactly where it is an
+    effect outside its wet gate; each fused group's amps equal post_amps
+    over its members."""
+    _PROJECTS[project](tmp_path)
+    cg = load_state(tmp_path, CPU).compiled
+    graph = cg.graph
+    for vi, plan in cg._posts.items():
+        v, st = graph.vertices[vi], cg.statics[vi]
+        assert torch.equal(plan.pan, mix.pan_amps(cg._angles[vi]))
+        pan_on, gain_on = mix.post_flags(v.angle, v.gain)
+        assert (plan.pan_on, plan.gain_on) == (bool(pan_on), bool(gain_on))
+        assert plan.blend == (st.kind == G.PLUGINFX and not st.fx_skip)
+        assert plan.wet.shape == plan.angle.shape == ()
+        assert float(plan.gain) == float(np.float32(v.gain))
+    assert set(cg._fused_amps) == set(cg.fused_groups)
+    for c, ids in cg._fused_ids.items():
+        assert torch.equal(cg._fused_amps[c],
+                           mix.post_amps(cg._angles[ids], cg._gains[ids]))
+    if project == "c5":
+        assert cg.fused_groups  # its tracks are one fused group
+    if project == "mix":  # loops, buses, Normalize; the near-0 pan skips
+        off = {graph.names[vi] for vi, p in cg._posts.items()
+               if not p.launches}
+        assert off == {"track0", "track1", "track2", "mixbus", "verbbus",
+                       "out"}
+        assert not cg._posts[graph.names.index("compressor2")].pan_on
+
+
+def _plain_epilogue(y, x, plan):
+    """The window program's epilogue before vertex_post, for every vertex:
+    the effect's wet blend, then mix.post."""
+    out = x + plan.wet * (y - x) if plan.blend else y
+    return mix.post(out, plan.angle, plan.gain)
+
+
+@pytest.mark.parametrize("project", ["mix", "c4"])
+def test_identity_vertices_render_as_the_plain_program(tmp_path,
+                                                       monkeypatch, project):
+    """The render's WAV, with the vertices that have nothing to do in
+    their epilogue keeping their arm's output, equals the plain program's,
+    in which every vertex runs the wet blend and mix.post."""
+    _PROJECTS[project](tmp_path)
+    st = load_state(tmp_path, CPU)
+    posts = st.compiled._posts.values()
+    assert any(p.launches for p in posts)
+    assert any(not p.launches for p in posts)
+    st.render()
+    got, rate = read_wav_ints(tmp_path / "outp.wav")
+    monkeypatch.setattr(mix.VertexPost, "launches", property(lambda s: True))
+    monkeypatch.setattr(mix, "vertex_post", _plain_epilogue)
+    plain = load_state(tmp_path, CPU)
+    plain.render()
+    want, want_rate = read_wav_ints(tmp_path / "outp.wav")
+    assert rate == want_rate and got.size > 0
+    assert np.abs(got).max() > 1000
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("bd", [8, 16, 24, 32])

@@ -132,7 +132,7 @@ class TestOracleEquivalence:
             'add_sample_multi("v", 1.3, 25.0, "smp", "ev", -1);\n'
             'set_output("v");', device,
         )
-        got = engine_audio(st, ["voice_mix"])
+        got = engine_audio(st, ["voice_mix", "vertex_post"])
         fl = O.OracleFloww(ev, SR, BL)
         verts = {"v": O.SampleMulti(bank_sample(st), "ev", gain=1.3, angle=25.0)}
         expect = O.oracle_render(verts, [], "v", {"ev": fl}, SR, BL, N_BLOCKS)
@@ -171,7 +171,7 @@ class TestOracleEquivalence:
             'add_debug_sine("v", 0.4, -40.0, "ev");\nset_output("v");',
             device,
         )
-        got = engine_audio(st)
+        got = engine_audio(st, ["vertex_post"])
         fl = O.OracleFloww(ev, SR, BL)
         verts = {"v": O.DebugSine("ev", gain=0.4, angle=-40.0)}
         expect = O.oracle_render(verts, [], "v", {"ev": fl}, SR, BL, N_BLOCKS)
@@ -186,7 +186,7 @@ class TestOracleEquivalence:
             f'add_synth("v", 0.7, 0.0, "ev", 0.5, 0.4, {hit}, '
             f'0.8, 0.6, {note}, 0.3, {note});\nset_output("v");', device,
         )
-        got = engine_audio(st, ["synth"])
+        got = engine_audio(st, ["synth", "vertex_post"])
         fl = O.OracleFloww(ev, SR, BL)
         hit9 = O.hit6([0.005, 0.02, 0.3, 0.05, 0.2, 0.1])
         note9 = O.hit6([0.01, 0.05, 0.8, 0.5, 0.4, 0.15])
@@ -224,7 +224,7 @@ class TestOracleEquivalence:
             f'add_synth("v", 0.7, 0.0, "ev", 0.5, 0.4, {hit}, '
             f'0.8, 0.6, {note}, 0.3, {note});\nset_output("v");', device,
         )
-        got = engine_audio(st, ["synth"])
+        got = engine_audio(st, ["synth", "vertex_post"])
         fl = O.OracleFloww(ev, SR, BL)
         hit9 = O.hit6([0.005, 0.02, 0.3, 0.05, 0.2, 0.1])
         note9 = O.hit6([0.01, 0.05, 0.8, 0.5, 0.4, 0.15])
@@ -312,7 +312,7 @@ class TestOracleEquivalence:
         st.fb.flowws[idx2] = ev2
         # force window chaining
         monkeypatch.setattr(state_mod, "RENDER_WINDOW_BLOCKS", 5)
-        got = engine_audio(st, ["voice_mix"])
+        got = engine_audio(st, ["voice_mix", "vertex_post"])
 
         flowws = {
             "ev": O.OracleFloww(ev, SR, BL),
@@ -353,7 +353,7 @@ class TestSampSynOracle:
             '    {0.01, 0.08, 0.7, 0.4, 0.3, 0.12}, "tbl");\n'
             'set_output("v");', device,
         )
-        got = engine_audio(st, ["sampsyn"])
+        got = engine_audio(st, ["sampsyn", "vertex_post"])
         fl = O.OracleFloww(ev, SR, BL)
         conf9 = [0.0, 0.01, 1.0, 0.08, 0.7, 0.4, 0.3, 0.12, 0.0]
         verts = {

@@ -678,7 +678,7 @@ set_output("sum");
         # render 1 serves the seed chain; do NOT reset time yet -- the
         # engine's own set_time(0) reset IS the remap under test
         st.fb.set_time(st.compiled.get_time())
-        with launched(device, "sampsyn"):
+        with launched(device, "sampsyn", "vertex_post"):
             r1 = np.concatenate([
                 host(c) for c in st.render_device()
             ])
@@ -783,7 +783,7 @@ set_output("sum");
         assert st.loaded
         cg = st.compiled
         check(cg, "after refresh")
-        with launched(device, "voice_mix", "synth"):
+        with launched(device, "voice_mix", "synth", "vertex_post"):
             self._render_np(st)
         check(cg, "after render 1 (+closing set_time)")
         self._render_np(st)

@@ -165,7 +165,8 @@ class TestWindowInvariance:
         test_windowed_equals_oneshot."""
         st, out = self.build(tmp_path, device)
         monkeypatch.setattr(state_mod, "RENDER_WINDOW_BLOCKS", 1024)
-        with launched(device, "voice_mix", "affine_scan", "synth"):
+        with launched(device, "voice_mix", "affine_scan", "synth",
+                      "vertex_post"):
             st.render()
         oneshot, _ = read_wav(out)
 
@@ -187,7 +188,8 @@ class TestWindowInvariance:
         """Mirror of tests/test_engine.py::TestWindowInvariance::
         test_no_nans_and_envelope_gates."""
         st, out = self.build(tmp_path, device)
-        with launched(device, "voice_mix", "affine_scan", "synth"):
+        with launched(device, "voice_mix", "affine_scan", "synth",
+                      "vertex_post"):
             st.render()
         audio, _ = read_wav(out, scale=True)
         assert not np.any(np.isnan(audio))
@@ -213,7 +215,7 @@ class TestNormalizeScan:
             """, device,
         )
         st.refresh()
-        with launched(device):
+        with launched(device, "vertex_post"):
             st.scan_exact()
         vals = st.compiled.get_normalization_values()
         assert len(vals) == 1
@@ -260,7 +262,8 @@ class TestSampSynAndFx:
         )
         st.refresh()
         assert st.loaded
-        with launched(device, "affine_scan", "max_decay_scan", "sampsyn"):
+        with launched(device, "affine_scan", "max_decay_scan", "sampsyn",
+                      "vertex_post"):
             st.render()
         audio, _ = read_wav(out, scale=True)
         assert not np.any(np.isnan(audio))
@@ -333,7 +336,7 @@ class TestSampSynAndFx:
             )
             st.refresh()
             assert st.loaded
-            with launched(device, "eq3"):
+            with launched(device, "eq3", "vertex_post"):
                 st.render()
             audio, _ = read_wav(out, scale=True)
             half = len(audio) // 2
@@ -517,7 +520,7 @@ class TestExactBiquadScoping:
         # reference outputs: FIRST render of a fresh graph per setting
         # (fx state carries across renders, so only first renders of
         # identically built graphs are comparable bit-for-bit)
-        with launched(device, "biquad_seq", "eq3"):
+        with launched(device, "biquad_seq", "eq3", "vertex_post"):
             st_a = self._build(tmp_path / "a", True, monkeypatch, device)
             st_b = self._build(tmp_path / "b", False, monkeypatch, device)
             ref_exact = self._render(st_a)
@@ -526,8 +529,8 @@ class TestExactBiquadScoping:
         assert not np.array_equal(ref_exact, ref_casc)
         on_card = device.type == "cuda"
         if on_card:
-            assert self._kernels(st_a) == {"biquad_seq"}
-            assert self._kernels(st_b) == {"eq3"}
+            assert self._kernels(st_a) == {"biquad_seq", "vertex_post"}
+            assert self._kernels(st_b) == {"eq3", "vertex_post"}
 
         for rnd in range(2):
             st_exact = self._build(
@@ -564,8 +567,9 @@ class TestExactBiquadScoping:
             np.testing.assert_array_equal(results["exact"], ref_exact)
             np.testing.assert_array_equal(results["casc"], ref_casc)
             if on_card:
-                assert self._kernels(st_exact) == {"biquad_seq"}
-                assert self._kernels(st_casc) == {"eq3"}
+                assert self._kernels(st_exact) == {"biquad_seq",
+                                                   "vertex_post"}
+                assert self._kernels(st_casc) == {"eq3", "vertex_post"}
 
 
 class TestLuaCoroutineProjectScripts:
@@ -610,7 +614,7 @@ class TestLuaCoroutineProjectScripts:
         assert sorted(v.name for v in st.g.vertices) == [
             "lp0", "lp1", "lp2", "sum"
         ]
-        with launched(device):
+        with launched(device, "vertex_post"):
             st.render()
         got, _ = read_wav(out, scale=False)
         assert got.shape[0] == int(np.ceil(SR * 0.25 / BL)) * BL

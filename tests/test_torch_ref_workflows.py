@@ -272,7 +272,7 @@ class TestUiWorkflow:
                 assert pool_segment_bytes(pool) == 0
             return old
 
-        with launched(device):
+        with launched(device, "vertex_post"):
             play_a_bit()
             g1 = refresh_mid_play(lua_src(2))  # topology change
             play_a_bit()                       # rebuilt graph plays at once

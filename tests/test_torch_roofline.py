@@ -21,7 +21,7 @@ from termdaw_tpu.engine.state import State as RefState
 from termdaw_tpu.utils import roofline as ref_roofline
 
 from termdaw_tpu_torch.graph import compile as gc
-from termdaw_tpu_torch.ops import filters, fx, scan, synthv, voices
+from termdaw_tpu_torch.ops import filters, fx, mix, scan, synthv, voices
 from termdaw_tpu_torch.ops.adsr import hit_conf
 from termdaw_tpu_torch.utils import roofline
 from termdaw_tpu_torch.utils.fixtures import (
@@ -230,6 +230,13 @@ def _wrapper_call(name: str, rng):
         args = (f32(T, 2), state, db, static["coefs"], static["sections"])
         # four biquad stages over [T, 4] lanes (the benchmark's work model)
         return fx.eq3_crossover, args, (4 * 16 * T, 4 * 32 * T)
+    if name == "vertex_post":
+        angle = f32(lo=10.0, hi=40.0)
+        plan = mix.VertexPost(True, True, True, f32(lo=0.3, hi=0.7), angle,
+                              f32(lo=0.5, hi=0.9), mix.pan_amps(angle))
+        # blend, pan and gain an element; y and x read, the output written
+        return mix.vertex_post, (f32(T, 2), f32(T, 2), plan), (
+            5 * T * 2, 3 * T * 2 * 4)
     coefs = tuple(f32(C, lo=-0.5, hi=0.5) for _ in range(5))
     args = (f32(T, C), coefs, f32(4, C))
     return (filters.biquad_apply_sequential, args,
@@ -239,7 +246,7 @@ def _wrapper_call(name: str, rng):
 @pytest.mark.parametrize("name", [
     "affine_scan", "max_decay_scan", "complex_affine_scan",
     "voice_mix_stereo", "biquad_apply_sequential", "sampsyn",
-    "eq3_crossover", "synth"])
+    "eq3_crossover", "synth", "vertex_post"])
 def test_kernel_wrapper_records_its_formula(name):
     fn, args, (flops, nbytes) = _wrapper_call(name, np.random.default_rng(1))
     want = fn(*args)
