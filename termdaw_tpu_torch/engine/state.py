@@ -13,7 +13,8 @@ graph rebuild) is carried over unchanged; what differs:
 * there is no backend guard: renders run on the State's device, in
   windows of `render_chunk_blocks(cs)` blocks, a whole render traced
   into TERMDAW_PROFILE's dir when it is set (utils/prof.device_trace);
-  the steps of a refresh and a render are `utils/prof.span`s;
+  the steps of a refresh and a render are `utils/prof.span`s, and a
+  render's device submissions the meter's `device_mark`s;
 * `render_device` returns device int tensors, which `render` copies to
   the host for the WAV writer;
 * timeline sharding (state.py:527-593, 670-693): a State handed a Mesh
@@ -48,7 +49,7 @@ from ..config import Config
 from ..fileio.wav import WavWriter
 from ..fileio.wavetable import WaveTable, parse_wavetable_from_buffer
 from ..lua import LuaRuntime, LuaError, LuaTable
-from ..utils.prof import device_trace, span
+from ..utils.prof import anchor, device_mark, device_trace, span
 from ..utils.term import DEFAULT, BLUE, YELLOW, RED, GREEN
 
 from ..banks import SampleBank, FlowwBank, BufferBank, SampleLoadMethod
@@ -593,6 +594,7 @@ class State:
     # ------------------------------------------------------------------ render
     def render(self) -> None:
         with device_trace("render"), span("render"):
+            anchor(self.device)
             self._render()
 
     def _render(self) -> None:
@@ -646,7 +648,8 @@ class State:
             for ints in chunks:
                 # the host waits here for what the device has queued
                 with span("fetch") as sp:
-                    host = ints.cpu().numpy()
+                    with device_mark():
+                        host = ints.cpu().numpy()
                     sp.attr("bytes", host.nbytes)
                 writer.write_ints(host)
             writer.close()
@@ -680,11 +683,14 @@ class State:
                 left -= nb
             if not wins:
                 return []
-            if psr > self.render_sr:
-                with span("resample"):
-                    wins = [StreamingResampler(psr, self.render_sr,
-                                               self.device).render_whole(wins)]
-            if sum(int(w.shape[0]) for w in wins) == 0:
-                return []
-            with span("quantize"):
-                return [quantize_interleave_many(wins, self.bd)]
+            # one device mark: the two calls are back to back on the host
+            with device_mark():
+                if psr > self.render_sr:
+                    with span("resample"):
+                        wins = [StreamingResampler(
+                            psr, self.render_sr, self.device
+                        ).render_whole(wins)]
+                if sum(int(w.shape[0]) for w in wins) == 0:
+                    return []
+                with span("quantize"):
+                    return [quantize_interleave_many(wins, self.bd)]

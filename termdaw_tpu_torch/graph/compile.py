@@ -104,7 +104,6 @@ channel amps (compile.py:1709-1723 on the TPU).
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -968,8 +967,9 @@ class CompiledGraph:
         return (*self._upload_packed(ints_buf, floats_buf), layout)
 
     def _upload_packed(self, ints_buf: np.ndarray, floats_buf: np.ndarray):
-        return (torch.from_numpy(ints_buf).to(self.device),
-                torch.from_numpy(floats_buf).to(self.device))
+        with prof.device_mark():
+            return (torch.from_numpy(ints_buf).to(self.device),
+                    torch.from_numpy(floats_buf).to(self.device))
 
     def seed_caps(self, fb: FlowwBank, total_blocks: int, step: int,
                   prebake: bool | None = None) -> None:
@@ -1412,8 +1412,7 @@ class CompiledGraph:
             else:
                 with span("window.bake"):
                     self._reset_chain_expects()
-                    bakes, new_carries = self._bake_all(fb, t0, nb,
-                                                        groups_span=True)
+                    bakes, new_carries = self._bake_all(fb, t0, nb)
                     ints, floats, layout = _pack_bakes(bakes)
                     fill = _table_fill(bakes)
                     self.live_bakes += 1
@@ -1548,7 +1547,7 @@ class CompiledGraph:
 
     def _bake_all(
         self, fb: FlowwBank, t0: int, nb: int,
-        carries: dict[int, Any] | None = None, groups_span: bool = False,
+        carries: dict[int, Any] | None = None,
     ):
         """Host-side event baking for a window. Each fused group's
         per-vertex voices merge into one COMPACT voice table (only voices
@@ -1556,8 +1555,7 @@ class CompiledGraph:
         to live voices. Table shapes pad to the sticky `bake_caps`
         (raised here on overflow). Under TERMDAW_VOICE_CAP the voice
         tables' `p` is clamped to the cap and overflow steals the oldest
-        voices (reference compile.py:1263-1296). `groups_span`: the
-        groups' bake is a `window.bake.groups` span (a live window's)."""
+        voices (reference compile.py:1263-1296)."""
         carries = self.carries if carries is None else carries
         bakes: dict[str, dict[str, np.ndarray]] = {}
         new_carries: dict[int, Any] = {}
@@ -1579,25 +1577,16 @@ class CompiledGraph:
             new_carries[vi] = nc
             self._record_caps(key, (self.cap_scope, names[vi], st.kind),
                               st.kind, tbl)
-        if not self.fused_groups:
-            return bakes, new_carries
-        groups = (span("window.bake.groups") if groups_span
-                  else contextlib.nullcontext())
-        with groups as sp:
-            for consumer, members in self.fused_groups.items():
-                voices_, group_carries = self._bake_fused_group(
-                    fb, consumer, members, t0, t1, carries
-                )
-                new_carries.update(group_carries)
-                tbl = self._merge_group(voices_, consumer, members, t0, nb)
-                bakes[f"fused{consumer}"] = tbl
-                self._record_caps(f"fused{consumer}",
-                                  (self.cap_scope, names[consumer], "fused"),
-                                  "fused", tbl)
-            if sp is not None:
-                sp.attr("groups", len(self.fused_groups))
-                sp.attr("members", len(self._fused_members))
-                sp.attr("voices", _table_fill(bakes)[3])
+        for consumer, members in self.fused_groups.items():
+            voices_, group_carries = self._bake_fused_group(
+                fb, consumer, members, t0, t1, carries
+            )
+            new_carries.update(group_carries)
+            tbl = self._merge_group(voices_, consumer, members, t0, nb)
+            bakes[f"fused{consumer}"] = tbl
+            self._record_caps(f"fused{consumer}",
+                              (self.cap_scope, names[consumer], "fused"),
+                              "fused", tbl)
         return bakes, new_carries
 
     def _bake_vertex(self, fb: FlowwBank, st: _VertexStatic, carry,
@@ -1883,11 +1872,12 @@ class CompiledGraph:
     def _run_cached(self, fn: _WindowProgram, ints: torch.Tensor,
                     floats: torch.Tensor, t0: int) -> torch.Tensor:
         """Copy a window's bake buffers and first frame into a program's
-        inputs and run it."""
-        fn.ints.copy_(ints)
-        fn.floats.copy_(floats)
-        fn.t0.fill_(t0)
-        audio = fn()
+        inputs and run it, the two inside one device mark of the meter."""
+        with prof.device_mark():
+            fn.ints.copy_(ints)
+            fn.floats.copy_(floats)
+            fn.t0.fill_(t0)
+            audio = fn()
         self.replays += 1
         self.replayed_nodes += fn.nodes
         return audio

@@ -5,8 +5,9 @@ kernels also replayed from a CUDA graph), the
 effects, small renders (the exact lane's, a chain-served one and a 24-bit
 one with the native host library on and off among them), playback on
 the card against the port's CPU path, and sharded windows replayed from
-captured graphs with NCCL collectives inside (a 1-rank world), and the
-roofline's window counts equal on the card and the CPU. This file
+captured graphs with NCCL collectives inside (a 1-rank world), the
+roofline's window counts equal on the card and the CPU, and the render
+meter's device split against the profiler and a known host wait. This file
 imports no JAX, so it also runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -15,6 +16,7 @@ Without a card every test skips."""
 
 import functools
 import gc
+import time
 
 import numpy as np
 import pytest
@@ -1641,3 +1643,178 @@ def test_mix_render_runs_the_epilogue_kernel_on_card(cuda, tmp_path,
     want, _ = read_wav_ints(tmp_path / "outp.wav")
     assert np.abs(want).max() > 16000
     assert np.abs(got - want).max() <= 1
+
+
+
+def _spin(seconds):
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        pass
+
+
+def _profiled(tmp_path, body):
+    """`body()` under torch.profiler (CPU and CUDA, started once before):
+    (the meter's records of it, the device rows of the trace as [start,
+    end] on perf_counter, their union in ms)."""
+    import json
+
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.harness.trace import DEVICE_CATS, WINDOW
+    from termdaw_tpu_torch.utils import prof
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        pass
+    torch.cuda.synchronize()
+    with profile(activities=acts) as p:
+        with record_function(WINDOW):
+            t_window = time.perf_counter()
+            body()
+            torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    p.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    (w0,) = [float(e["ts"]) for e in events if e.get("name") == WINDOW
+             and e.get("cat") == "user_annotation" and e.get("ph") == "X"]
+    rows = [(t_window + (float(e["ts"]) - w0) * 1e-6,
+             t_window + (float(e["ts"]) + float(e.get("dur", 0)) - w0)
+             * 1e-6) for e in events
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    union = sum(b - a for a, b in prof.merge(rows)) * 1e3
+    return [r for r in prof.renders() if r.t0 >= t_window], rows, union
+
+
+def _inside(rows, busy, slack):
+    """The share of the rows' time inside the busy intervals widened by
+    `slack` seconds on each side."""
+    total = inside = 0.0
+    for a, b in rows:
+        total += b - a
+        for s, e in busy:
+            inside += max(0.0, min(b, e + slack) - max(a, s - slack))
+    return inside / total
+
+
+@pytest.mark.parametrize("seed", [2900000011])
+def test_meter_busy_holds_the_profilers_rows_on_card(cuda, tmp_path, seed,
+                                                      monkeypatch):
+    """c4 at the benchmark tests' tiny size (4 s), three bounces under
+    torch.profiler after four warm ones, every render split: every device
+    row of the trace lies inside the meter's busy intervals (99% of their
+    time, within the two clocks' offset), so the marks leave no device
+    work out, and the meter's busy time is at least the profiler's busy
+    union. It is more: a mark holds the stream from its first event to
+    its last, the gaps between a replayed graph's kernels and the host's
+    dispatch inside a many-op submission included, which the union
+    leaves out (3.3-3.9x the union from the first row to the last inside
+    each mark, at this size under the profiler). It stays below 90% of
+    the renders' wall (71-75% measured), so a meter that read the
+    renders as busy throughout fails."""
+    import json
+    import os
+    from pathlib import Path
+
+    from benchmark.projects import demo_fx
+    from termdaw_tpu_torch.utils import prof
+
+    monkeypatch.setattr(prof, "SPLIT_EVERY", 1)
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "benchmark" / "configs" /
+                      "c4_fullgraph.json").read_text())
+    cfg["length_s"] = 4.0
+    demo_fx.build(cfg, seed, tmp_path)
+    st = load_state(tmp_path, cuda)
+    st.output_file = os.devnull
+    for _ in range(4):
+        st.render()
+
+    def bounces():
+        for _ in range(3):
+            st.render()
+
+    recs, rows, union = _profiled(tmp_path, bounces)
+    assert len(recs) == 3
+    busy = [iv for r in recs for iv in r.busy]
+    assert _inside(rows, busy, 1e-4) >= 0.99
+    got = sum(r.busy_ms for r in recs)
+    wall = sum(r.ms for r in recs)
+    assert union * 0.99 <= got <= 0.9 * wall, (union, got, wall)
+
+
+def test_meter_busy_matches_one_kernel_marks_on_card(cuda, monkeypatch):
+    """Marks that each hold one ~2 ms kernel, with host waits between
+    them: nothing lies inside a mark but the kernel (and its dispatch),
+    and the meter's busy time is the kernels' own device time, read from
+    a pair of timing events around each launch, within 5%."""
+    from termdaw_tpu_torch.utils import prof
+
+    monkeypatch.setattr(prof, "SPLIT_EVERY", 1)
+
+    cycles = 4_000_000
+    for _ in range(3):
+        torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    pairs = []
+    with prof.span("render"):
+        prof.anchor(cuda)
+        for _ in range(4):
+            with prof.span("window"):
+                a, b = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                with prof.device_mark():
+                    a.record()
+                    torch.cuda._sleep(cycles)
+                    b.record()
+                torch.cuda.synchronize()
+                pairs.append((a, b))
+            with prof.span("window.bake"):
+                _spin(0.001)
+    rec = prof.renders()[-1]
+    want = sum(a.elapsed_time(b) for a, b in pairs)
+    assert want > 4.0 and len(rec.busy) == 4, (want, rec.busy)
+    assert abs(rec.busy_ms - want) <= 0.05 * want, (rec.busy_ms, want)
+
+
+def test_meter_reads_a_host_wait_between_two_windows_on_card(cuda,
+                                                            monkeypatch):
+    """A render of two window submissions, each ~1 ms of device work,
+    with a 5 ms host wait in the second window's bake, before its
+    submission: the meter reads 5 +- 0.3 ms of idle under `window.bake`
+    (an error of its anchor would move device time into it), and each
+    mark's busy time inside its window, within the clocks' offset."""
+    from termdaw_tpu_torch.utils import prof
+
+    monkeypatch.setattr(prof, "SPLIT_EVERY", 1)
+    x = torch.zeros(256, device=cuda)
+    cycles = 2_000_000
+    for _ in range(3):
+        torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    with prof.span("render"):
+        prof.anchor(cuda)
+        with prof.span("render.device"):
+            with prof.span("window"):
+                with prof.device_mark():
+                    torch.cuda._sleep(cycles)
+                torch.cuda.synchronize()
+            with prof.span("window"):
+                with prof.span("window.bake"):
+                    _spin(0.005)
+                with prof.device_mark():
+                    torch.cuda._sleep(cycles)
+                    x.add_(1.0)
+        with prof.span("fetch"), prof.device_mark():
+            x.cpu()
+    torch.cuda.synchronize()        # the fetch's last event, for the read
+    rec = prof.renders()[-1]
+    idle = rec.idle_ms
+    assert idle is not None and abs(idle["window.bake"] - 5.0) <= 0.3, idle
+    (bake,) = [s for s in rec.steps if s[0] == "window.bake"]
+    assert 5.0 <= (bake[2] - bake[1]) * 1e3 < 5.3
+    w1, w2 = [s for s in rec.steps if s[0] == "window"]
+    busy = rec.busy
+    assert len(busy) >= 2 and rec.busy_ms > 1.0
+    assert w1[1] - 1e-4 <= busy[0][0] < busy[0][1] <= w1[2] + 3e-4
+    assert bake[2] - 1e-4 <= busy[1][0] <= w2[2]

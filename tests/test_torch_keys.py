@@ -7,7 +7,7 @@ that voices ring across windows and past the song's end into the next
 render. Also termdaw's drum rule on same-frame on-events, the groups'
 shared sample pool against per-group concatenations, a lone SampleMulti
 on its own buffer, the group counters (`group_slots`, `group_voices`,
-`group_pool_bytes`), the `window.bake.groups` span, the voice mix's
+`group_pool_bytes`), each live bake's rise of them, the voice mix's
 regimes at the session's and c4's sizes and the work model of the voice
 mix's roofline (benchmark/harness/work_keys.py). Imports no JAX."""
 
@@ -16,7 +16,6 @@ from __future__ import annotations
 import contextlib
 import io
 import json
-import time
 from pathlib import Path
 
 import numpy as np
@@ -30,7 +29,6 @@ from termdaw_tpu_torch.engine import state as state_mod
 from termdaw_tpu_torch.fileio.wav import read_wav
 from termdaw_tpu_torch.graph import graph as G
 from termdaw_tpu_torch.ops import mix, voices
-from termdaw_tpu_torch.utils import prof
 from termdaw_tpu_torch.utils.fixtures import load_state, write_c4_project
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -229,9 +227,9 @@ def test_group_counters_count_the_packed_tables(tmp_path):
     """One window a render: render 1 is served from the seeded chain,
     render 2 bakes live and is recorded, render 3 is served from that
     recording: the counters
-    rise by each window's count of its packed group tables; each live
-    bake holds one `window.bake.groups` span inside its `window.bake`,
-    with the groups, their members and the window's voices."""
+    rise by each window's count of its packed group tables; the live
+    bake raises them by its own window's slots and voices, over the
+    session's two groups of 12 members each."""
     session(tmp_path)
     torch.set_num_threads(1)
     with contextlib.redirect_stdout(io.StringIO()):
@@ -244,17 +242,14 @@ def test_group_counters_count_the_packed_tables(tmp_path):
         assert cg.live_bakes == 0
         assert (cg.group_slots, cg.group_voices) == tuple(
             np.sum(seeded, axis=0))
-        t0 = time.perf_counter()
-        with prof.recording():
-            st.render()
-        spans = [r for r in prof.records()
-                 if r.name == "window.bake.groups" and r.t0 >= t0]
+        before = (cg.group_slots, cg.group_voices)
+        st.render()
+        rise = (cg.group_slots - before[0], cg.group_voices - before[1])
         st.render()
     live = [_fill(w[1], w[2]) for w in cg._recorded[-1]["wins"]]
-    assert cg.live_bakes == len(live) == len(spans) == 1
-    assert all(s.parent.name == "window.bake" for s in spans)
-    assert [s.attrs for s in spans] == [
-        {"groups": 2, "members": 24, "voices": v} for _, v in live]
+    assert cg.live_bakes == len(live) == 1
+    assert rise == tuple(np.sum(live, axis=0))
+    assert (len(cg.fused_groups), len(cg._fused_members)) == (2, 24)
     want = np.sum(seeded, axis=0) + 2 * np.sum(live, axis=0)
     assert (cg.group_slots, cg.group_voices) == tuple(want)
     assert 0 < cg.group_voices < cg.group_slots

@@ -131,8 +131,9 @@ def test_a_served_window_says_so(tmp_path, quiet):
 
 def test_nothing_is_recorded_while_off(tmp_path, quiet, monkeypatch):
     """Outside recording(), TERMDAW_TIMING and a profiler, a span is the
-    shared no-op: a render records nothing, enters no record_function
-    and reads no clock in the recorder."""
+    shared no-op or the always-on meter's tick: a render records nothing
+    in `records()`, enters no record_function and reads no clock in the
+    span recorder; it leaves one record in the meter's `renders()`."""
     st = load_state(_c1(tmp_path), torch.device("cpu"))
     calls = {"range": 0, "clock": 0}
 
@@ -148,11 +149,14 @@ def test_nothing_is_recorded_while_off(tmp_path, quiet, monkeypatch):
     monkeypatch.setattr(prof, "time",
                         types.SimpleNamespace(perf_counter=clock))
     before = prof.records()
+    metered = prof.renders()
     st.render()
     after = prof.records()
     assert len(after) == len(before) and (
         not after or after[-1] is before[-1])
     assert calls == {"range": 0, "clock": 0}
+    assert prof.renders()[-1] not in metered
+    assert prof.renders()[-1].steps[-1][0] == "render"
     assert prof.span("x") is prof.span("y")
     with prof.recording():
         with prof.span("x") as sp:
